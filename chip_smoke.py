@@ -16,9 +16,15 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    n_q in {8, 32}, and at the serving path's M 64 (a mux tick) and M 8 (a
    join) at n_q 8; codes must be >= 99 % identical, and every row whose codes
    differ must first differ at a near-tie (rule in ``rvq_first_differences``).
-   K2 (LSTM recurrence) at H = C = 512, T = 750, B in {1, 16}, and with a
-   carried state (random h0 and c0) at (T 4, B 16), the mux tick's shape, and
-   (T 750, B 1); max |h - h_plain| and |c_T - c_plain| <= 1e-4.
+   K2 (LSTM recurrence) at H = C = 512 from a zero state at (T, B) in
+   (750, 1), (750, 16), (750, 32), (150, 32), and with a carried state
+   (random h0 and c0) at (T 4, B 16), the mux tick's shape, and (T 750, B 1);
+   max |h - h_plain| and |c_T - c_plain| <= 1e-4. Timed at each shape: the
+   kernel alone, the port's whole layer (projection by ``torch.matmul``, bias,
+   kernel) and one cuDNN ``nn.LSTM`` layer with the same weights and state
+   (which projects too); then the share of a step spent staging, in the gate
+   dot, in the cell update and at the grid barrier (``clock64`` stamps) at
+   T 750, B 1 and 16.
 3. The port's CLI, in process, at full ``encodec_24khz`` width with seeded
    random weights written as a released-layout ``.th``: a 10 s, 24 kHz wav to
    ``.ecdc`` at 6 kbps and back to wav. The K1, K2 and K3 launch counters are
@@ -46,10 +52,13 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    ``CodecServer`` with length buckets takes 8 concurrent round trips of mixed
    lengths: each >= 20 dB SNR against a direct call except in its final hop
    (the reflect model is tail-exact), with coalescing.
-7. K4 (discriminator conv) against its plain version (cuDNN's ``F.conv2d`` and
-   ``conv2d_input``, TF32 off) at the 12 eligible conv shapes of one
-   discriminator call at the training config (B 12, 72000 samples): forward
-   and input gradient within 1e-4 · max|ref|; median times by CUDA events.
+7. K4 (discriminator conv, 3xTF32 on the tensor cores) against its plain
+   version (cuDNN's ``F.conv2d`` and ``conv2d_input``, TF32 off) at the 12
+   eligible conv shapes of one discriminator call at the training config
+   (B 12, 72000 samples): forward and input gradient within 1e-5 · max|ref|;
+   median times by CUDA events, and two bounds a shape: 3 x the operations at
+   the TF32 tensor-core peak, and the operations at the f32 CUDA-core peak
+   (each no less than the bytes' time).
 8. The training path through the port's ``train_cli``, in process, at the full
    width of ``encodec_pytorch_tpu/configs/config.yaml`` in f32: 36 synthetic
    3 s wavs (one epoch = 3 steps of 12 x 72000), no LR warmup so the
@@ -61,13 +70,16 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    kernel swapped for its plain version: losses within
    1e-3 relative, gradients within 1e-3 and updates within 1e-2 by relative
    norm (a code flipped at an f32 near-tie moves them more than roundoff).
-10. K5 (the discriminator's im2col conv) against its plain version (the im2col
+10. K4 at the 48 kHz training config's shapes (B 32, 48000 stereo samples):
+    conv_4's forward (K5 takes conv_1..conv_3's) and the input gradient of
+    conv_1..conv_4, as phase 7 checks and times them.
+11. K5 (the discriminator's im2col conv) against its plain version (the im2col
     GEMM in torch) and cuDNN's ``F.conv2d`` (TF32 off) at the 9 F-stride-2
     conv shapes of one discriminator call at the 48 kHz training config
     (B 32, 48000 stereo samples): within 1e-4 · max|ref| of both, and the
     trainable route's dx and dW (K4's dx, cuDNN's dW) within 1e-4 of
     ``F.conv2d``'s autograd; median times by CUDA events, the bound.
-11. The 48 kHz codec CLI (``-q``), in process, at full ``encodec_48khz`` width
+12. The 48 kHz codec CLI (``-q``), in process, at full ``encodec_48khz`` width
     with seeded weights: a 10 s stereo wav to ``.ecdc`` and back at 6 kbps;
     header (``m encodec_48khz``, ``al 480000``, ``nc 4``), 11 frames each with
     its scale, the last one short; the file's codes and scales equal the
@@ -75,10 +87,10 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     against the plain versions; ``encode_segmajor`` against ``encode``
     >= 99 %; the K1 and K2 counters > 0 and K3's 0 (its resblocks use
     ``time_group_norm``); RTF of the round trip at B 1; a 24 kbps run (n_q 16).
-12. A ``CodecServer`` on the 48 kHz model: 8 concurrent stereo round trips of
+13. A ``CodecServer`` on the 48 kHz model: 8 concurrent stereo round trips of
     1.5, 3, 6 and 10 s (two each), each >= 20 dB SNR against a direct call,
     coalesced into fewer than 8 batches.
-13. The 48 kHz training path through ``train_cli --config config_48k_stereo``
+14. The 48 kHz training path through ``train_cli --config config_48k_stereo``
     at full width (B 32 x 48000 stereo, f32; 96 synthetic 1.25 s clips, one
     epoch of 3 steps, no LR warmup): the K5, K4 (forward and dx) and K2
     counters > 0; finite losses; the generator, the discriminator and the
@@ -88,7 +100,9 @@ to the CPU. Phases, in the order they run, each of which fails the run:
 Output: one line per measurement (each phase's start with the seconds since
 the script started), then a JSON line with each kernel's numbers (launches:
 the 24 and 48 kHz codec CLIs' and servers' for K1, K2 and K3; both training
-paths' for K4; the 48 kHz training steps' for K5), the ``nvidia-smi`` name and
+paths' for K4; the 48 kHz training steps' for K5; K2's entry lists every
+timed shape under ``shapes``, K4's the totals of both configs), the
+``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a card,
 or outside a checkout, it exits non-zero and prints no result.
 """
@@ -115,14 +129,16 @@ K1_TOL_SHARE = 0.99
 K1_NEAR_TIE_REL = 1e-5
 K2_TOL = 1e-4
 K3_TOL_REL = 1e-5
-K4_TOL_REL = 1e-4
+K4_TOL_REL = 1e-5
 K5_TOL_REL = 1e-4
 SNR_MIN_DB = 20.0
 TRAIN_LOSS_REL = 1e-3
 TRAIN_GRAD_REL = 1e-3
 TRAIN_UPDATE_REL = 1e-2
-# NVIDIA's data sheet, H100 SXM: f32 on CUDA cores, and HBM3
+# NVIDIA's data sheet, H100 SXM: f32 on CUDA cores, TF32 on the tensor cores
+# (dense), and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -265,56 +281,75 @@ def k1_phase(torch, rvq_kernel, gen):
 
 
 def k2_phase(torch, lstm_kernel, gen):
+    """K2 against its plain version, and timed like for like against cuDNN:
+    at each shape the kernel alone, the port's whole layer (the ``torch.matmul``
+    input projection, the bias and K2: what ``ops/lstm.py`` runs) and one
+    cuDNN ``nn.LSTM`` layer with the same weights (which also projects).
+    Then where a step goes (``lstm_step_profile``) at T 750, B 1 and 16.
+    Returns the summary at (T 750, B 1), with every shape under ``shapes``."""
     H = C = 512
-    T = 750
     bound = 1 / H ** 0.5
-    summary = None
-    for B in (1, 16):
+    summary, shapes = None, []
+    # offline shapes (zero state): the B 1 codec, the B 16 bulk path, and B 32
+    # (the 48 kHz step; segments x requests at T 150); carried states: the
+    # mux tick (T 4, B 16) and a long carried run (T 750, B 1)
+    for T, B, carried in ((750, 1, False), (750, 16, False), (750, 32, False),
+                          (150, 32, False), (4, 16, True), (750, 1, True)):
         x = torch.randn(T, B, C, generator=gen, device='cuda')
         w_ih = (torch.rand(4 * H, C, generator=gen, device='cuda') * 2 - 1) * bound
         w_hh = ((torch.rand(4 * H, H, generator=gen, device='cuda') * 2 - 1) * bound).contiguous()
-        b = (torch.rand(4 * H, generator=gen, device='cuda') * 2 - 1) * bound
-        xp = (torch.matmul(x, w_ih.t()) + b).contiguous()
-        h, _ = lstm_kernel.lstm_recurrence(xp, w_hh)
-        hp, _ = lstm_kernel.lstm_recurrence_reference(xp, w_hh)
+        bias = (torch.rand(4 * H, generator=gen, device='cuda') * 2 - 1) * bound
+        state = ((torch.randn(B, H, generator=gen, device='cuda') * 0.5,
+                  torch.randn(B, H, generator=gen, device='cuda')) if carried else (None, None))
+        xp = (torch.matmul(x, w_ih.t()) + bias).contiguous()
+        h, c = lstm_kernel.lstm_recurrence(xp, w_hh, *state)
+        hp, cp = lstm_kernel.lstm_recurrence_reference(xp, w_hh, *state)
         torch.cuda.synchronize()
-        err = float((h - hp).abs().max())
-        ms = cuda_ms(torch, lambda: lstm_kernel.lstm_recurrence(xp, w_hh))
-        plain_ms = cuda_ms(torch, lambda: lstm_kernel.lstm_recurrence_reference(xp, w_hh),
-                           runs=5, warmup=1)
-        # the library call: one cuDNN LSTM layer, which also does K2's input
-        # projection (x @ W_ih^T + b) inside the same call
+        err = max(float((h - hp).abs().max()), float((c - cp).abs().max()))
+
+        def layer():    # what ops/lstm.py runs for one layer on the card
+            return lstm_kernel.lstm_recurrence(
+                (torch.matmul(x, w_ih.t()) + bias).contiguous(), w_hh, *state)
+
         cudnn = torch.nn.LSTM(C, H).cuda()
         with torch.no_grad():
-            library_ms = cuda_ms(torch, lambda: cudnn(x))
-        b_ms, b_by = bound_ms(2.0 * T * B * 4 * H * H, 4.0 * (T * B * 4 * H + 4 * H * H + T * B * H))
-        log(f'K2 lstm_recurrence T={T} B={B} H={H}: max |h - h_plain| {err:.3e}, '
-            f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN nn.LSTM (with the input '
-            f'projection) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
-        check(np.isfinite(err) and err <= K2_TOL,
-              f'K2 disagrees with its plain version at B={B}: {err}')
-        if B == 1:
-            summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=library_ms)
-    for T, B in ((4, 16), (750, 1)):
-        xp = torch.randn(T, B, 4 * H, generator=gen, device='cuda')
-        w_hh = ((torch.rand(4 * H, H, generator=gen, device='cuda') * 2 - 1) * bound).contiguous()
-        h0 = torch.randn(B, H, generator=gen, device='cuda') * 0.5
-        c0 = torch.randn(B, H, generator=gen, device='cuda')
-        h, c = lstm_kernel.lstm_recurrence(xp, w_hh, h0, c0)
-        hp, cp = lstm_kernel.lstm_recurrence_reference(xp, w_hh, h0, c0)
-        torch.cuda.synchronize()
-        eh, ec = float((h - hp).abs().max()), float((c - cp).abs().max())
-        ms = cuda_ms(torch, lambda: lstm_kernel.lstm_recurrence(xp, w_hh, h0, c0))
-        plain_ms = cuda_ms(torch, lambda: lstm_kernel.lstm_recurrence_reference(xp, w_hh, h0, c0),
+            cudnn.weight_ih_l0.copy_(w_ih)
+            cudnn.weight_hh_l0.copy_(w_hh)
+            cudnn.bias_ih_l0.copy_(bias)
+            cudnn.bias_hh_l0.zero_()
+            hx = None if not carried else (state[0][None].contiguous(), state[1][None].contiguous())
+            lib_err = float((cudnn(x, hx)[0] - hp).abs().max())
+            library_ms = cuda_ms(torch, lambda: cudnn(x, hx))
+        ms = cuda_ms(torch, lambda: lstm_kernel.lstm_recurrence(xp, w_hh, *state))
+        layer_ms = cuda_ms(torch, layer)
+        plain_ms = cuda_ms(torch, lambda: lstm_kernel.lstm_recurrence_reference(xp, w_hh, *state),
                            runs=5, warmup=1)
         b_ms, b_by = bound_ms(2.0 * T * B * 4 * H * H,
-                              4.0 * (T * B * 4 * H + 4 * H * H + T * B * H + 3 * B * H))
-        log(f'K2 lstm_recurrence with a carried state T={T} B={B} H={H}: max |h - h_plain| '
-            f'{eh:.3e}, max |c_T - c_plain| {ec:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} '
-            f'ms, bound {b_ms:.4f} ms ({b_by})')
-        check(max(eh, ec) <= K2_TOL, f'stateful K2 disagrees with its plain version at T={T}')
-        summary['max_abs_err'] = max(summary['max_abs_err'], eh, ec)
+                              4.0 * (T * B * 4 * H + 4 * H * H + T * B * H
+                                     + (3 if carried else 1) * B * H))
+        kind = 'carried state' if carried else 'zero state'
+        log(f'K2 lstm_recurrence {kind} T={T} B={B} H={H}: max |h, c_T - plain| {err:.3e} '
+            f'(cuDNN vs plain {lib_err:.3e}); kernel {ms:.4f} ms ({1e3 * ms / T:.3f} us a step), '
+            f'layer (projection + bias + kernel) {layer_ms:.4f} ms, cuDNN nn.LSTM layer '
+            f'{library_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+        check(np.isfinite(err) and err <= K2_TOL,
+              f'K2 disagrees with its plain version at T={T} B={B} ({kind}): {err}')
+        shapes.append(dict(T=T, B=B, carried=carried, ms=ms, layer_ms=layer_ms,
+                           plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                           max_abs_err=err))
+        if (T, B, carried) == (750, 1, False):
+            summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=library_ms)
+        summary['max_abs_err'] = max(summary['max_abs_err'], err)
+        if T == 750 and B in (1, 16) and not carried:
+            p = lstm_kernel.lstm_step_profile(xp, w_hh)
+            step_us = 1e3 * ms / T
+            log(f'K2 step breakdown T={T} B={B} (clock64 stamps of block 0, shares of '
+                f'{p["cycles"]} cycles; us at {step_us:.3f} us a step): '
+                + ', '.join(f'{k} {p[k]:.3f} ({p[k] * step_us:.3f} us)'
+                            for k in lstm_kernel.STEP_PARTS))
+            shapes[-1]['step_shares'] = {k: p[k] for k in lstm_kernel.STEP_PARTS}
+    summary['shapes'] = shapes
     return summary
 
 
@@ -709,68 +744,108 @@ def train_overrides(tmp: Path, seed: int, config: str = 'config') -> list:
             f'common.seed={seed}', 'lr_scheduler.warmup_epoch=0']
 
 
-def k4_phase(torch, seed):
-    """K4 against cuDNN at the 12 eligible conv shapes of one discriminator
-    call at the training config; returns the forward and dx summaries."""
+def k4_bounds(flops: float, nbytes: float):
+    """K4's two bounds in ms, (3xTF32 on the tensor cores, f32 on the CUDA
+    cores), each the larger of its operations' time and the bytes' time."""
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(3 * flops / PEAK_TF32_FLOPS, t_bytes),
+            1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
+
+
+def k4_phase(torch, seed, config_name: str = 'config'):
+    """K4 against cuDNN (TF32 off) at the shapes one discriminator call of the
+    training config gives it: every conv K4 takes runs forward and dx, and at
+    48 kHz, where K5 takes conv_1..conv_3's forward, those convs run K4's dx
+    only. Returns the forward and dx summaries over the call."""
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
     from encodec_pytorch_tpu_torch.train.trainer import build_disc_from_config
 
-    config = load_config()
+    config = load_config(name=config_name)
     disc = build_disc_from_config(config, 'cuda', torch.Generator().manual_seed(seed))
     B, length = int(config.datasets.batch_size), int(config.datasets.tensor_cut)
+    sr, channels = int(config.model.sample_rate), int(config.model.channels)
     calls = []
 
     def record(module, args):
         calls.append((args[0].detach(), module.conv.kernel().detach(),
-                      module.conv.bias.detach(), module))
+                      module.conv.bias.detach(), module, module.uses_kernel))
 
     hooks = [m.register_forward_pre_hook(record) for m in disc.modules()
-             if getattr(m, 'uses_kernel', False)]
+             if getattr(m, 'uses_kernel', False) or getattr(m, 'uses_im2col', False)]
     with torch.no_grad():
-        disc(torch.from_numpy(make_clip(seed + 7, B, length / SR)).cuda())
+        disc(torch.from_numpy(make_clip(seed + 7, B, length / sr, sr, channels)).cuda())
     for h in hooks:
         h.remove()
     check(len(calls) == 12, f'expected 12 eligible convs, found {len(calls)}')
     gen = torch.Generator(device='cuda').manual_seed(seed + 8)
-    tot = {k: 0.0 for k in ('f_ms', 'f_plain', 'f_bound', 'd_ms', 'd_plain', 'd_bound')}
+    keys = ('f_ms', 'f_lib', 'f_bound', 'f_bound32', 'f_kern', 'f_pack',
+            'd_ms', 'd_lib', 'd_bound', 'd_bound32', 'd_kern', 'd_pack')
+    tot = {k: 0.0 for k in keys}
     err_f = err_d = 0.0
-    for x, w, b, m in calls:
+    n_fwd = 0
+    for x, w, b, m, fwd in calls:
         geo = (m.stride, m.dilation, m.padding)
-        y = dck.disc_conv_forward(x, w, b, *geo)
         y_ref = dck.disc_conv_forward_reference(x, w, b, *geo)
+        flops = 2.0 * y_ref.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        line = f'K4 {config_name} x {tuple(x.shape)} w {tuple(w.shape)} stride {m.stride} ' \
+               f'dilation {m.dilation}, {flops / 1e9:.2f} GFLOP:'
+        if fwd:
+            n_fwd += 1
+            y = dck.disc_conv_forward(x, w, b, *geo)
+            torch.cuda.synchronize()
+            ef = float((y - y_ref).abs().max())
+            rf = ef / float(y_ref.abs().max())
+            wk = dck.pack_weight_cuda(w, m.stride[1], dx=False)
+            check(torch.equal(wk, dck.pack_weight(w.permute(1, 2, 3, 0)[None])),
+                  f'K4 weight packing disagrees with its plain version at w {tuple(w.shape)}')
+            f_ms = cuda_ms(torch, lambda: dck.disc_conv_forward(x, w, b, *geo))
+            f_kern = cuda_ms(torch, lambda: dck.forward_packed(x, wk, b, w.shape, *geo))
+            f_pack = cuda_ms(torch, lambda: dck.pack_weight_cuda(w, m.stride[1], dx=False))
+            f_lib = cuda_ms(torch, lambda: dck.disc_conv_forward_reference(x, w, b, *geo))
+            f_bounds = k4_bounds(flops, 4.0 * (x.numel() + w.numel() + b.numel() + y.numel()))
+            line += (f' fwd max |d| {ef:.3e} ({rf:.2e} of max), wrapper {f_ms:.4f} ms (kernel '
+                     f'{f_kern:.4f} ms, weight packing {f_pack:.4f} ms), cuDNN {f_lib:.4f} ms, '
+                     f'bound {f_bounds[0]:.4f} ms (3xTF32) / {f_bounds[1]:.4f} ms (f32);')
+            check(rf <= K4_TOL_REL, f'K4 forward disagrees with cuDNN at x {tuple(x.shape)}: {rf}')
+            err_f = max(err_f, ef)
+            for k, v in zip(keys[:6], (f_ms, f_lib, *f_bounds, f_kern, f_pack)):
+                tot[k] += v
+            del y
         g = torch.randn(y_ref.shape, generator=gen, device='cuda')
+        del y_ref
         dx = dck.disc_conv_input_grad(g, w, x.shape, *geo)
         dx_ref = dck.disc_conv_input_grad_reference(g, w, x.shape, *geo)
         torch.cuda.synchronize()
-        ef = float((y - y_ref).abs().max())
         ed = float((dx - dx_ref).abs().max())
-        rf = ef / float(y_ref.abs().max())
         rd = ed / float(dx_ref.abs().max())
-        f_ms = cuda_ms(torch, lambda: dck.disc_conv_forward(x, w, b, *geo))
-        f_plain = cuda_ms(torch, lambda: dck.disc_conv_forward_reference(x, w, b, *geo))
+        wk = dck.pack_weight_cuda(w, m.stride[1], dx=True)
+        check(torch.equal(wk, dck.pack_weight(dck.pack_dx_weight(w, m.stride[1]))),
+              f'K4 dx weight packing disagrees with its plain version at w {tuple(w.shape)}')
         d_ms = cuda_ms(torch, lambda: dck.disc_conv_input_grad(g, w, x.shape, *geo))
-        d_plain = cuda_ms(torch, lambda: dck.disc_conv_input_grad_reference(g, w, x.shape, *geo))
-        flops = 2.0 * y.numel() * w.shape[1] * w.shape[2] * w.shape[3]
-        f_bound, _ = bound_ms(flops, 4.0 * (x.numel() + w.numel() + b.numel() + y.numel()))
-        d_bound, _ = bound_ms(flops, 4.0 * (g.numel() + w.numel() + dx.numel()))
-        log(f'K4 disc_conv x {tuple(x.shape)} w {tuple(w.shape)} stride {m.stride} dilation '
-            f'{m.dilation}: fwd max |d| {ef:.3e} ({rf:.2e} of max), kernel {f_ms:.4f} ms, '
-            f'cuDNN {f_plain:.4f} ms, bound {f_bound:.4f} ms; dx max |d| {ed:.3e} '
-            f'({rd:.2e} of max), kernel {d_ms:.4f} ms, cuDNN {d_plain:.4f} ms, '
-            f'bound {d_bound:.4f} ms; {flops / 1e9:.2f} GFLOP')
-        check(rf <= K4_TOL_REL and rd <= K4_TOL_REL,
-              f'K4 disagrees with its plain version at x {tuple(x.shape)}: {rf}, {rd}')
-        err_f, err_d = max(err_f, ef), max(err_d, ed)
-        for k, v in zip(tot, (f_ms, f_plain, f_bound, d_ms, d_plain, d_bound)):
+        d_kern = cuda_ms(torch, lambda: dck.input_grad_packed(g, wk, w.shape, x.shape, *geo))
+        d_pack = cuda_ms(torch, lambda: dck.pack_weight_cuda(w, m.stride[1], dx=True))
+        d_lib = cuda_ms(torch, lambda: dck.disc_conv_input_grad_reference(g, w, x.shape, *geo))
+        d_bounds = k4_bounds(flops, 4.0 * (g.numel() + w.numel() + dx.numel()))
+        log(f'{line} dx max |d| {ed:.3e} ({rd:.2e} of max), wrapper {d_ms:.4f} ms (kernel '
+            f'{d_kern:.4f} ms, weight packing {d_pack:.4f} ms), cuDNN {d_lib:.4f} ms, bound '
+            f'{d_bounds[0]:.4f} ms (3xTF32) / {d_bounds[1]:.4f} ms (f32)')
+        check(rd <= K4_TOL_REL, f'K4 dx disagrees with cuDNN at x {tuple(x.shape)}: {rd}')
+        err_d = max(err_d, ed)
+        for k, v in zip(keys[6:], (d_ms, d_lib, *d_bounds, d_kern, d_pack)):
             tot[k] += v
-    log(f'K4 over one discriminator call (12 convs): forward {tot["f_ms"]:.3f} ms vs cuDNN '
-        f'{tot["f_plain"]:.3f} ms (bound {tot["f_bound"]:.3f} ms); dx {tot["d_ms"]:.3f} ms vs '
-        f'cuDNN {tot["d_plain"]:.3f} ms (bound {tot["d_bound"]:.3f} ms)')
-    fwd = dict(max_abs_err=err_f, ms=tot['f_ms'], plain_ms=tot['f_plain'],
-               bound_ms=tot['f_bound'], bound_by='operations', library_ms=tot['f_plain'])
-    dx = dict(max_abs_err=err_d, ms=tot['d_ms'], plain_ms=tot['d_plain'],
-              bound_ms=tot['d_bound'], bound_by='operations', library_ms=tot['d_plain'])
+        del dx, dx_ref, g
+    log(f'K4 {config_name} over one discriminator call ({n_fwd} forward, {len(calls)} dx): '
+        f'forward {tot["f_ms"]:.3f} ms (kernel {tot["f_kern"]:.3f} ms, packing '
+        f'{tot["f_pack"]:.3f} ms) vs cuDNN {tot["f_lib"]:.3f} ms (bound {tot["f_bound"]:.3f} ms '
+        f'3xTF32, {tot["f_bound32"]:.3f} ms f32); dx {tot["d_ms"]:.3f} ms (kernel '
+        f'{tot["d_kern"]:.3f} ms, packing {tot["d_pack"]:.3f} ms) vs cuDNN {tot["d_lib"]:.3f} ms '
+        f'(bound {tot["d_bound"]:.3f} ms 3xTF32, {tot["d_bound32"]:.3f} ms f32)')
+    fwd, dx = ({'max_abs_err': err, 'ms': tot[p + 'ms'], 'plain_ms': tot[p + 'lib'],
+                'bound_ms': tot[p + 'bound'], 'bound_by': 'operations',
+                'library_ms': tot[p + 'lib'], 'bound_f32_ms': tot[p + 'bound32'],
+                'kernel_ms': tot[p + 'kern'], 'packing_ms': tot[p + 'pack']}
+               for p, err in (('f_', err_f), ('d_', err_d)))
     return fwd, dx
 
 
@@ -1162,6 +1237,11 @@ def run(seed: int) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase('training')
         train_launches = training_phase(torch, seed, Path(tmp))
+    phase('K4 at 48 kHz')
+    k4_fwd48, k4_dx48 = k4_phase(torch, seed, 'config_48k_stereo')
+    for summary, at48 in ((k4_fwd, k4_fwd48), (k4_dx, k4_dx48)):
+        summary['shapes'] = [dict(summary, config='config'), dict(at48, config='config_48k_stereo')]
+        summary['max_abs_err'] = max(summary['max_abs_err'], at48['max_abs_err'])
     phase('K5')
     k5 = k5_phase(torch, seed)
     with tempfile.TemporaryDirectory() as tmp:

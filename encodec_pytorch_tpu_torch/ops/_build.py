@@ -110,11 +110,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.encodec_rvq_encode_f32.restype = i
     lib.encodec_rvq_encode_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.encodec_lstm_recurrence_f32.restype = i
-    lib.encodec_lstm_recurrence_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.encodec_lstm_recurrence_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
     lib.encodec_disc_conv_fwd_f32.restype = i
-    lib.encodec_disc_conv_fwd_f32.argtypes = [p, p, p, p] + [i] * 11 + [p]
+    lib.encodec_disc_conv_fwd_f32.argtypes = [p, p, p, p] + [i] * 12 + [p]
     lib.encodec_disc_conv_dx_f32.restype = i
-    lib.encodec_disc_conv_dx_f32.argtypes = [p, p, p] + [i] * 11 + [p]
+    lib.encodec_disc_conv_dx_f32.argtypes = [p, p, p] + [i] * 12 + [p]
+    lib.encodec_disc_conv_pack_f32.restype = i
+    lib.encodec_disc_conv_pack_f32.argtypes = [p, p] + [i] * 7 + [p]
     lib.encodec_disc_im2col_fwd_f32.restype = i
     lib.encodec_disc_im2col_fwd_f32.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.encodec_resblock_f32.restype = i

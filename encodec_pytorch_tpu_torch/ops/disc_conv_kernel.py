@@ -16,6 +16,13 @@ dilation, any time dilation and zero padding, and the discriminator's taps:
   CUDA): K4 forward, K4 dx, and the weight gradient from
   ``torch.nn.grad.conv2d_weight``, as the JAX package takes dW from XLA.
 
+K4 runs on the tensor cores in 3xTF32: each operand is split into two TF32
+parts (:func:`split_tf32`, the bits of ``cvt.rna.tf32.f32``) and each term
+is the sum of three TF32 products, so the result holds the f32 conv to within
+1e-5 of its largest value. :func:`pack_weight` splits the weights once a
+call and lays them out in the order of the kernel's ``mma`` fragments; on
+the card :func:`pack_weight_cuda` does the same in one launch.
+
 Each wrapper runs its plain version only for CPU tensors. For a CUDA tensor it
 launches the kernel, or raises on a dtype, shape or stride it does not take.
 ``launches`` on each entry counts kernel launches. Which convs are routed here
@@ -44,6 +51,11 @@ Pair = Tuple[int, int]
 
 # (KT, KF, F-stride) of the convs the kernel is built for
 KERNEL_TAPS = ((3, 9, 2), (3, 3, 1))
+# the kernel's tiles (csrc/disc_conv.cu): summed channels a chunk, output
+# channels a block, and the m16n8k8 fragments' lanes
+CHUNK = 4
+OUT_TILE = 32
+LANES = 32
 
 
 def eligible(in_channels: int, out_channels: int, kernel_size: Pair, stride: Pair,
@@ -86,6 +98,59 @@ def out_size(T: int, F_: int, KT: int, KF: int, sf: int, dt: int, pt: int, pf: i
     return T + 2 * pt - (KT - 1) * dt, (F_ + 2 * pf - KF) // sf + 1
 
 
+def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi = cvt.rna.tf32.f32(v)`` and ``lo`` the same
+    rounding of ``v - hi``, emulated on the bits: round the magnitude to 10
+    mantissa bits, to nearest with ties away from zero (add half of the 13
+    dropped bits, then clear them). ``hi + lo`` is within ``2**-22 |v|`` of
+    ``v``. float32 in, float32 out."""
+    def rna(u: torch.Tensor) -> torch.Tensor:
+        bits = u.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def pack_weight(wc: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight operand, from the correlation weights
+    ``wc [P, C, KT, NJ, O]`` (phase, channels summed over, taps, channels
+    written): split by :func:`split_tf32` and laid out as
+    ``[P, O/32, C/4, ceil(KT·NJ/2), 4, 32, 4]`` (C, O and the taps padded
+    with zeros): phase, output tile, chunk of 4 summed channels, k-step (two
+    taps), n-fragment, lane ``4g + q``, and the lane's B fragment ``(hi b0,
+    hi b1, lo b0, lo b1)``, where b0 is summed channel q at the k-step's
+    first tap, b1 at its second, both for output channel 8·fragment + g."""
+    P, C, KT, NJ, O = wc.shape
+    taps = KT * NJ
+    steps = -(-taps // 2)
+    Cp, Op = -(-C // CHUNK) * CHUNK, -(-O // OUT_TILE) * OUT_TILE
+    w = F.pad(wc.reshape(P, C, taps, O), (0, Op - O, 0, 2 * steps - taps, 0, Cp - C))
+    # p, chunk, q, k-step, tap of the pair, output tile, n-fragment, g
+    w = w.reshape(P, Cp // CHUNK, CHUNK, steps, 2, Op // OUT_TILE, 4, 8)
+    w = w.permute(0, 5, 1, 3, 6, 7, 2, 4)
+    hi, lo = split_tf32(w.contiguous())
+    return torch.cat([hi, lo], -1).reshape(P, Op // OUT_TILE, Cp // CHUNK, steps, 4, LANES,
+                                           4).contiguous()
+
+
+def pack_weight_cuda(w: torch.Tensor, sf: int, dx: bool) -> torch.Tensor:
+    """:func:`pack_weight` of the forward's (``dx`` False:
+    ``w.permute(1, 2, 3, 0)[None]``) or the input gradient's
+    (``pack_dx_weight(w, sf)``) correlation weights, in one launch on the
+    card, from ``w [Cout, Cin, KT, KF]`` (contiguous f32 on CUDA). The same
+    bits as the plain version."""
+    Cout, Cin, KT, KF = w.shape
+    C, O, NJ = (Cout, Cin, -(-KF // sf)) if dx else (Cin, Cout, KF)
+    out = torch.empty(sf if dx else 1, -(-O // OUT_TILE), -(-C // CHUNK), -(-KT * NJ // 2), 4,
+                      LANES, 4, device=w.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    rc = _build.load().encodec_disc_conv_pack_f32(
+        w.data_ptr(), out.data_ptr(), Cout, Cin, KT, KF, sf, int(dx), w.device.index,
+        ctypes.c_void_p(stream))
+    _build.check(rc, 'disc_conv weight-packing kernel')
+    return out
+
+
 def disc_conv_forward_reference(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                                 stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
     """Plain forward: ``F.conv2d``."""
@@ -112,13 +177,8 @@ def disc_conv_forward(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Ten
     To, Fo = out_size(T, F_, KT, KF, sf, dt, pt, pf)
     if To <= 0 or Fo <= 0:
         raise ValueError(f'disc_conv_forward: empty output for x {tuple(x.shape)}')
-    wk = w.permute(1, 2, 3, 0).contiguous()            # [Cin, KT, KF, Cout]
-    y = torch.empty(B, Cout, To, Fo, device=x.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.load().encodec_disc_conv_fwd_f32(
-        x.data_ptr(), wk.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), B, Cin, Cout, T, F_, KT, KF, sf, dt, pt, pf, ctypes.c_void_p(stream))
-    _build.check(rc, 'disc_conv forward kernel')
+    y = forward_packed(x, pack_weight_cuda(w, sf, dx=False), bias, w.shape, stride, dilation,
+                       padding)
     disc_conv_forward.launches += 1
     return y
 
@@ -147,19 +207,52 @@ def disc_conv_input_grad(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int
             T, F_, KT, KF, sf, dt, pt, pf)):
         raise ValueError(f'disc_conv_input_grad: g {tuple(g.shape)}, w {tuple(w.shape)}, '
                          f'x {tuple(x_shape)}')
-    wk = pack_dx_weight(w, sf)
-    dx = torch.empty(B, Cin, T, F_, device=g.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = _build.load().encodec_disc_conv_dx_f32(
-        g.data_ptr(), wk.data_ptr(), dx.data_ptr(), B, Cin, Cout, T, F_, KT, KF, sf, dt, pt,
-        pf, ctypes.c_void_p(stream))
-    _build.check(rc, 'disc_conv input-gradient kernel')
+    dx = input_grad_packed(g, pack_weight_cuda(w, sf, dx=True), w.shape, x_shape, stride,
+                           dilation, padding)
     disc_conv_input_grad.launches += 1
     return dx
 
 
 disc_conv_forward.launches = 0
 disc_conv_input_grad.launches = 0
+
+
+def forward_packed(x: torch.Tensor, wk: torch.Tensor, bias: Optional[torch.Tensor],
+                   w_shape: Sequence[int], stride: Pair, dilation: Pair,
+                   padding: Pair) -> torch.Tensor:
+    """K4's forward launch alone, from weights already packed by
+    :func:`pack_weight_cuda`: what :func:`disc_conv_forward` runs after its
+    checks and the packing. Not counted in ``launches``."""
+    Cout, Cin, KT, KF = w_shape
+    sf, dt, (pt, pf) = stride[1], dilation[0], padding
+    B, _, T, F_ = x.shape
+    y = torch.empty(B, Cout, *out_size(T, F_, KT, KF, sf, dt, pt, pf), device=x.device,
+                    dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _build.load().encodec_disc_conv_fwd_f32(
+        x.data_ptr(), wk.data_ptr(), bias.data_ptr() if bias is not None else None,
+        y.data_ptr(), B, Cin, Cout, T, F_, KT, KF, sf, dt, pt, pf, x.device.index,
+        ctypes.c_void_p(stream))
+    _build.check(rc, 'disc_conv forward kernel')
+    return y
+
+
+def input_grad_packed(g: torch.Tensor, wk: torch.Tensor, w_shape: Sequence[int],
+                      x_shape: Sequence[int], stride: Pair, dilation: Pair,
+                      padding: Pair) -> torch.Tensor:
+    """K4's input-gradient launch alone, from weights already packed by
+    :func:`pack_weight_cuda` (``dx`` True): what :func:`disc_conv_input_grad`
+    runs after its checks and the packing. Not counted in ``launches``."""
+    Cout, Cin, KT, KF = w_shape
+    sf, dt, (pt, pf) = stride[1], dilation[0], padding
+    B, _, T, F_ = x_shape
+    dx = torch.empty(B, Cin, T, F_, device=g.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = _build.load().encodec_disc_conv_dx_f32(
+        g.data_ptr(), wk.data_ptr(), dx.data_ptr(), B, Cin, Cout, T, F_, KT, KF, sf, dt, pt,
+        pf, g.device.index, ctypes.c_void_p(stream))
+    _build.check(rc, 'disc_conv input-gradient kernel')
+    return dx
 
 
 class _DiscConv(torch.autograd.Function):

@@ -10,10 +10,13 @@ return every hidden state ``[T, B, H]`` and the final cell state
 i, f, g, o.
 
 :func:`lstm_recurrence` launches the kernel for a CUDA tensor and runs the
-plain version only for a CPU tensor. The TPU gates (``H % 128 == 0``, the VMEM
-``fits`` budget) were VMEM rules and are not carried over: the kernel takes
-any H. Forward only: training's backward recomputes the recurrence with the
-plain version and takes its autograd (``ops/lstm.py`` ``_Recurrence``).
+plain version only for a CPU tensor. :func:`lstm_step_profile` runs the
+kernel once with ``clock64`` stamps and reports where a step goes (staging,
+the gate dot, the cell update, the grid barrier). The TPU gates
+(``H % 128 == 0``, the VMEM ``fits`` budget) were VMEM rules and are not
+carried over: the kernel takes any H up to 1024. Forward only: training's
+backward recomputes the recurrence with the plain version and takes its
+autograd (``ops/lstm.py`` ``_Recurrence``).
 """
 
 import ctypes
@@ -46,14 +49,8 @@ def lstm_recurrence_reference(xp: torch.Tensor, w_hh: torch.Tensor,
     return torch.stack(out), c
 
 
-def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
-                    h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Hidden states ``[T, B, H]`` and final cell state ``[B, H]`` of the
-    recurrence; kernel K2 on CUDA."""
+def _check(xp, w_hh, h0, c0):
     tensors = [t for t in (xp, w_hh, h0, c0) if t is not None]
-    if all(t.device.type == 'cpu' for t in tensors):
-        return lstm_recurrence_reference(xp, w_hh, h0, c0)
     if xp.device.type != 'cuda' or any(t.device != xp.device for t in tensors):
         raise ValueError(f'lstm_recurrence: tensors on {[str(t.device) for t in tensors]}; '
                          'all must be on one CUDA device (or all on the CPU)')
@@ -69,19 +66,60 @@ def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
             raise ValueError(f'lstm_recurrence: {name} {tuple(t.shape)} is not [B, H] = {(B, H)}')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('lstm_recurrence: inputs must be contiguous')
+
+
+def _launch(xp, w_hh, h0, c0, prof: Optional[torch.Tensor]):
+    T, B, H4 = xp.shape
+    H = H4 // 4
     out = torch.empty(T, B, H, device=xp.device, dtype=torch.float32)
-    if T == 0:
-        return out, (torch.zeros(B, H, device=xp.device) if c0 is None else c0.clone())
     c_t = torch.empty(B, H, device=xp.device, dtype=torch.float32)
-    lib = _build.load()
     stream = torch.cuda.current_stream(xp.device).cuda_stream
-    rc = lib.encodec_lstm_recurrence_f32(
+    rc = _build.load().encodec_lstm_recurrence_f32(
         xp.data_ptr(), w_hh.data_ptr(), None if h0 is None else h0.data_ptr(),
         None if c0 is None else c0.data_ptr(), out.data_ptr(), c_t.data_ptr(), T, B, H,
-        xp.device.index, ctypes.c_void_p(stream))
+        xp.device.index, ctypes.c_void_p(stream), None if prof is None else prof.data_ptr())
     _build.check(rc, 'lstm_recurrence kernel')
-    lstm_recurrence.launches += 1
     return out, c_t
 
 
+def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hidden states ``[T, B, H]`` and final cell state ``[B, H]`` of the
+    recurrence; kernel K2 on CUDA."""
+    tensors = [t for t in (xp, w_hh, h0, c0) if t is not None]
+    if all(t.device.type == 'cpu' for t in tensors):
+        return lstm_recurrence_reference(xp, w_hh, h0, c0)
+    _check(xp, w_hh, h0, c0)
+    T, B, H4 = xp.shape
+    if T == 0:
+        out = torch.empty(0, B, H4 // 4, device=xp.device, dtype=torch.float32)
+        return out, (torch.zeros(B, H4 // 4, device=xp.device) if c0 is None else c0.clone())
+    out = _launch(xp, w_hh, h0, c0, None)
+    lstm_recurrence.launches += 1
+    return out
+
+
 lstm_recurrence.launches = 0
+
+# the parts of a step that ``lstm_step_profile`` reports, in the kernel's order
+STEP_PARTS = ('stage', 'dot', 'update', 'barrier')
+
+
+def lstm_step_profile(xp: torch.Tensor, w_hh: torch.Tensor,
+                      h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None
+                      ) -> dict:
+    """Where a step of K2 goes, from ``clock64`` stamps that block 0 takes
+    each step: the share of the kernel's cycles spent staging h[t-1] and
+    xp[t] (``stage``), in the gate dot (``dot``), in the cell update
+    (``update``) and waiting at the grid barrier (``barrier``), and the
+    cycles of the whole kernel (``cycles``). One launch on CUDA tensors; not
+    counted in ``lstm_recurrence.launches`` (not the main path)."""
+    _check(xp, w_hh, h0, c0)
+    if xp.shape[0] == 0:
+        raise ValueError('lstm_step_profile: T must be > 0')
+    prof = torch.zeros(5, device=xp.device, dtype=torch.int64)
+    _launch(xp, w_hh, h0, c0, prof)
+    counts = prof.tolist()
+    total = max(counts[4], 1)
+    return dict({k: v / total for k, v in zip(STEP_PARTS, counts)}, cycles=counts[4])

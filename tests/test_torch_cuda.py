@@ -10,11 +10,14 @@ Shapes are ragged on purpose: rows and bins that are not multiples of the RVQ
 kernel's tiles, and hidden sizes that do not divide the LSTM kernel's grid.
 Bars: RVQ codes equal except where the first difference is a near-tie (the
 rule of ``chip_smoke.rvq_first_differences``), exact ties go to the lower
-index, LSTM hidden states within 1e-5 at T <= 50. The discriminator conv
-(K4): forward and input gradient within 1e-5 · max|ref| of ``F.conv2d`` and
-``conv2d_input`` with TF32 off (f32 sums in another order), at every
-(F-stride, T-dilation) pair of the discriminator and F sizes that leave
-ragged tiles; the trainable conv's three gradients likewise, and the LSTM's
+index, LSTM hidden states within 1e-5 at T <= 50, at B from 1 to 40 (one
+batch pass of 16 rows and several) and at H that leaves a short last block;
+chunks of 1, 4 or 7 steps with a carried (h, c) give the bits of one call. The
+discriminator conv (K4, 3xTF32 on the tensor cores): forward and input
+gradient within 1e-5 · max|ref| of ``F.conv2d`` and ``conv2d_input`` with
+TF32 off, at both tap classes and every T dilation, with T and F sizes that
+leave ragged tiles, and its weight-packing kernel bit-equal to the plain
+packing; the trainable conv's three gradients likewise, and the LSTM's
 autograd wrapper against autograd of the plain recurrence. K2 with a carried
 (h, c) within 1e-5 of its plain version, and its zero-state call bit-equal to
 the call without a state. The fused resblock (K3) within 1e-5 · max|ref| of
@@ -101,6 +104,65 @@ def test_lstm_kernel_carried_state_matches_plain(cuda, T, B, H):
     start = h1[-1] if T // 2 else h0
     h2, c2 = lstm_kernel.lstm_recurrence(xp[T // 2:].contiguous(), w_hh, start.contiguous(), c1)
     assert torch.equal(torch.cat([h1, h2]), h) and torch.equal(c2, c)
+
+
+@pytest.mark.parametrize('B', [1, 3, 16, 17, 32, 40])
+@pytest.mark.parametrize('H', [512, 265, 1000])
+def test_lstm_kernel_batches_match_plain(cuda, B, H):
+    # H 512: 4 units a block on 132 SMs; H 265: 3 units a block, the last block
+    # 1; H 1000: 8 units a block, 512 threads
+    gen = torch.Generator(device=cuda).manual_seed(B * H)
+    T, bound = 20, 1 / H ** 0.5
+    xp = torch.randn(T, B, 4 * H, generator=gen, device=cuda)
+    w_hh = (torch.rand(4 * H, H, generator=gen, device=cuda) * 2 - 1) * bound
+    h0 = torch.randn(B, H, generator=gen, device=cuda) * 0.5
+    c0 = torch.randn(B, H, generator=gen, device=cuda)
+    for state in ((), (h0, c0)):
+        h, c = lstm_kernel.lstm_recurrence(xp, w_hh, *state)
+        ref, ref_c = lstm_kernel.lstm_recurrence_reference(xp, w_hh, *state)
+        assert float((h - ref).abs().max()) <= 1e-5 and float((c - ref_c).abs().max()) <= 1e-5
+
+
+def test_lstm_kernel_splits_batches_past_shared_memory(cuda):
+    # H 1000 holds 48 batch rows a launch in 227 KB of shared memory: 50 take two
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    T, B, H = 6, 50, 1000
+    xp = torch.randn(T, B, 4 * H, generator=gen, device=cuda)
+    w_hh = (torch.rand(4 * H, H, generator=gen, device=cuda) * 2 - 1) / H ** 0.5
+    h0 = torch.randn(B, H, generator=gen, device=cuda) * 0.5
+    c0 = torch.randn(B, H, generator=gen, device=cuda)
+    h, c = lstm_kernel.lstm_recurrence(xp, w_hh, h0, c0)
+    ref, ref_c = lstm_kernel.lstm_recurrence_reference(xp, w_hh, h0, c0)
+    assert float((h - ref).abs().max()) <= 1e-5 and float((c - ref_c).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('chunk', [1, 4, 7])
+@pytest.mark.parametrize('B,H', [(16, 512), (3, 100)])
+def test_lstm_kernel_carried_chunks_are_one_call(cuda, chunk, B, H):
+    gen = torch.Generator(device=cuda).manual_seed(chunk + B)
+    T = 23
+    xp = torch.randn(T, B, 4 * H, generator=gen, device=cuda)
+    w_hh = (torch.rand(4 * H, H, generator=gen, device=cuda) * 2 - 1) / H ** 0.5
+    h0 = torch.randn(B, H, generator=gen, device=cuda) * 0.5
+    c0 = torch.randn(B, H, generator=gen, device=cuda)
+    h_all, c_all = lstm_kernel.lstm_recurrence(xp, w_hh, h0, c0)
+    hs, h, c = [], h0, c0
+    for t in range(0, T, chunk):
+        out, c = lstm_kernel.lstm_recurrence(xp[t:t + chunk].contiguous(), w_hh, h, c)
+        hs.append(out)
+        h = out[-1].contiguous()
+    assert torch.equal(torch.cat(hs), h_all) and torch.equal(c, c_all)
+
+
+def test_lstm_step_profile_reports_the_parts(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xp = torch.randn(30, 16, 4 * 512, generator=gen, device=cuda)
+    w_hh = torch.randn(4 * 512, 512, generator=gen, device=cuda) / 23
+    launches = lstm_kernel.lstm_recurrence.launches
+    p = lstm_kernel.lstm_step_profile(xp, w_hh)
+    assert lstm_kernel.lstm_recurrence.launches == launches
+    assert p['cycles'] > 0 and all(p[k] > 0 for k in lstm_kernel.STEP_PARTS)
+    assert 0.9 < sum(p[k] for k in lstm_kernel.STEP_PARTS) <= 1.0
 
 
 def test_lstm_kernel_zero_state_is_the_offline_call(cuda):
@@ -221,6 +283,12 @@ DISC_CASES = [
     (1, 32, 32, 20, 33, (3, 9), (1, 2), (4, 1), (4, 4)),
     (3, 32, 32, 7, 100, (3, 3), (1, 1), (1, 1), (1, 1)),
     (1, 40, 64, 5, 70, (3, 9), (1, 2), (1, 1), (1, 4)),
+    # ragged T and F tails past the 16-row, 32-column tiles at every dilation
+    (2, 32, 32, 37, 257, (3, 9), (1, 2), (4, 1), (4, 4)),
+    (1, 32, 32, 19, 130, (3, 9), (1, 2), (2, 1), (2, 4)),
+    (2, 32, 32, 37, 33, (3, 3), (1, 1), (2, 1), (2, 1)),
+    (1, 32, 32, 19, 65, (3, 3), (1, 1), (4, 1), (4, 1)),
+    (1, 36, 40, 17, 41, (3, 3), (1, 1), (1, 1), (1, 1)),
 ]
 
 
@@ -240,6 +308,17 @@ def test_disc_conv_kernel_matches_plain(cuda, B, Cin, Cout, T, F, k, stride, dil
     assert _rel_max(dx, dx_ref) <= 1e-5
     # same bits on a second run: the gather form has no atomics
     assert torch.equal(dx, dck.disc_conv_input_grad(g, w, x.shape, stride, dilation, padding))
+
+
+@pytest.mark.parametrize('Cout,Cin,k,sf', [(32, 32, (3, 9), 2), (32, 32, (3, 3), 1),
+                                            (64, 40, (3, 9), 2), (40, 36, (3, 3), 1)])
+def test_disc_conv_pack_kernel_is_the_plain_packing(cuda, Cout, Cin, k, sf):
+    gen = torch.Generator(device=cuda).manual_seed(Cout + Cin)
+    w = torch.randn(Cout, Cin, *k, generator=gen, device=cuda)
+    assert torch.equal(dck.pack_weight_cuda(w, sf, dx=False),
+                       dck.pack_weight(w.permute(1, 2, 3, 0)[None]))
+    assert torch.equal(dck.pack_weight_cuda(w, sf, dx=True),
+                       dck.pack_weight(dck.pack_dx_weight(w, sf)))
 
 
 def test_disc_conv_autograd_matches_plain(cuda):
