@@ -3,7 +3,7 @@
 its GAN training step and the 48 kHz stereo family (codec, CodecServer,
 training step) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--before DIR]
 
 Run it from the root of a checkout: it imports ``encodec_pytorch_tpu_torch``
 from beside this file, and needs a CUDA card and ``nvcc``. It never falls back
@@ -14,8 +14,12 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    path's shapes, with median times by CUDA events (20 runs; 5 for the plain
    LSTM loop, ~0.1 s a call): K1 (RVQ cascade) at M in {750, 12000} rows and
    n_q in {8, 32}, and at the serving path's M 64 (a mux tick) and M 8 (a
-   join) at n_q 8; codes must be >= 99 % identical, and every row whose codes
-   differ must first differ at a near-tie (rule in ``rvq_first_differences``).
+   join) at n_q 8, with the squared norms cached as the main path has them;
+   codes must be >= 99 % identical, and every row whose codes differ must
+   first differ at a near-tie (rule in ``rvq_first_differences``). Each shape
+   logs its launch (the cluster size, rows a tile and CTAs) and, beside the
+   CUDA-event time of a wrapper call, the kernel's own device time from
+   ``torch.profiler`` (at the serving shapes the former is mostly host).
    K2 (LSTM recurrence) at H = C = 512 from a zero state at (T, B) in
    (750, 1), (750, 16), (750, 32), (150, 32), and with a carried state
    (random h0 and c0) at (T 4, B 16), the mux tick's shape, and (T 750, B 1);
@@ -40,7 +44,10 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    encode + decode (B 1: C 32/64/128/256 at T 240000/120000/30000/6000, each
    block with its own seeded weights) and the 4 tick shapes of the mux (B 16:
    T 1280/640/160/32, with a streaming halo), plus non-causal padding at C 32
-   and a ragged T: max |d| / max|ref| <= 1e-5, kernel and plain ms, bound.
+   and a ragged T: max |d| / max|ref| <= 1e-5, kernel (and its device time)
+   and plain ms, bound, the launch (cluster size, columns a tile, units); at
+   each tick shape, three streamed chunks with a carried halo bit-equal to
+   the offline call.
 6. The serving path at full width with the seeded weights of phase 3: a
    ``StreamingServer`` of 16 slots, 4 hops a chunk, 6 kbps, warmed up by one
    short stream; then 16 streams of 224 hops (2.99 s), joining at staggered
@@ -97,11 +104,17 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     codebooks changed; ms per step and peak memory; then phase 9's
     kernel-vs-plain step at this config.
 
+With ``--before DIR`` (another checkout of the port, e.g. the parent commit
+unpacked with ``git archive``), phases 2 and 5 also run that checkout's K1
+and K3 on the same inputs: its time beside the kernel's, and whether the
+codes and outputs are bit-equal to it.
+
 Output: one line per measurement (each phase's start with the seconds since
 the script started), then a JSON line with each kernel's numbers (launches:
 the 24 and 48 kHz codec CLIs' and servers' for K1, K2 and K3; both training
-paths' for K4; the 48 kHz training steps' for K5; K2's entry lists every
-timed shape under ``shapes``, K4's the totals of both configs), the
+paths' for K4; the 48 kHz training steps' for K5; K1's and K2's entries list
+every timed shape under ``shapes``, K3's its 8 offline and 4 tick shapes,
+K4's the totals of both configs), the
 ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Without a card,
 or outside a checkout, it exits non-zero and prints no result.
@@ -187,6 +200,30 @@ def cuda_ms(torch, fn, runs=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, kernel: str, runs=20, tries=3):
+    """Mean device milliseconds a call of ``fn`` spends in kernels whose name
+    holds ``kernel``, by ``torch.profiler`` (CUPTI); None if no try saw any.
+    Unlike ``cuda_ms`` it leaves out the host's launch cost."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / runs
+    return None
+
+
+def fmt_ms(v) -> str:
+    return 'not measured' if v is None else f'{v:.4f} ms'
+
+
 def bound_ms(flops: float, nbytes: float):
     """(least ms the card could take, 'operations' or 'bytes')."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -245,10 +282,15 @@ def rvq_first_differences(torch, x, embed, codes, plain):
     return int(rows.sum()), not_tie
 
 
-def k1_phase(torch, rvq_kernel, gen):
+def k1_phase(torch, rvq_kernel, gen, before=None):
+    """K1 against its plain version at the codec's and the serving path's
+    shapes, called as the main path calls it (squared norms cached); with
+    ``before`` (the kernel modules of an earlier checkout, ``--before``) also
+    that kernel's codes and time on the same inputs. Returns the summary at
+    (M 750, n_q 8), with every shape under ``shapes``."""
     from encodec_pytorch_tpu_torch.quantization.core_vq import rvq_decode
     D, N = 128, 1024
-    summary = None
+    summary, shapes = None, []
     # the codec path's shapes (10 s: 750 frames; 16 x 10 s: 12000), and the
     # serving path's: a mux tick (16 slots x 4 frames) and a B = 1 join (8 frames)
     for M, K in ((750, 8), (750, 32), (12000, 8), (12000, 32), (64, 8), (8, 8)):
@@ -256,27 +298,49 @@ def k1_phase(torch, rvq_kernel, gen):
         scale = 0.7 ** torch.arange(K, device='cuda', dtype=torch.float32)
         embed = (torch.randn(K, N, D, generator=gen, device='cuda')
                  * scale[:, None, None]).contiguous()
-        codes = rvq_kernel.rvq_encode(x, embed)
+        esq = rvq_kernel.codebook_sq_norms(embed)
+        codes = rvq_kernel.rvq_encode(x, embed, esq)
         plain = rvq_kernel.rvq_encode_reference(x, embed)
         torch.cuda.synchronize()
         same = float((codes == plain).float().mean())
         n_diff, not_tie = rvq_first_differences(torch, x, embed, codes, plain)
         err = float((rvq_decode(embed, codes[:, None]) - rvq_decode(embed, plain[:, None]))
                     .abs().max())
-        ms = cuda_ms(torch, lambda: rvq_kernel.rvq_encode(x, embed))
+        ms = cuda_ms(torch, lambda: rvq_kernel.rvq_encode(x, embed, esq))
         plain_ms = cuda_ms(torch, lambda: rvq_kernel.rvq_encode_reference(x, embed))
         b_ms, b_by = bound_ms(2.0 * M * N * D * K, 4.0 * (M * D + K * N * D + K * M))
+        dev_ms = device_ms(torch, lambda: rvq_kernel.rvq_encode(x, embed, esq), 'rvq_cascade')
+        cfg = rvq_kernel.launch_config(M, N)
+        ctas = -(-M // cfg['rows_per_tile']) * cfg['cluster']
         log(f'K1 rvq_encode M={M} n_q={K} N={N} D={D}: identical codes {same:.6f}, '
             f'rows differing {n_diff}, not near-tie {not_tie}, '
-            f'max |dequantized diff| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-            f'bound {b_ms:.4f} ms ({b_by})')
+            f'max |dequantized diff| {err:.3e}, kernel {ms:.4f} ms (on the device '
+            f'{fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, '
+            f'bound {b_ms:.4f} ms ({b_by}); launch: clusters of {cfg["cluster"]} CTAs, '
+            f'{cfg["rows_per_tile"]} rows a tile, {cfg["bins_per_buffer"]} bins a buffer, '
+            f'{ctas} CTAs')
         check(same >= K1_TOL_SHARE and not_tie == 0,
               f'K1 disagrees with its plain version at M={M} n_q={K}')
+        entry = dict(M=M, n_q=K, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, identical=same, max_abs_err=err, cluster=cfg['cluster'],
+                     rows_per_tile=cfg['rows_per_tile'])
+        if before is not None:
+            old = before.rvq_kernel.rvq_encode(x, embed)
+            torch.cuda.synchronize()
+            old_call = lambda: before.rvq_kernel.rvq_encode(x, embed)
+            entry.update(before_ms=cuda_ms(torch, old_call),
+                         before_device_ms=device_ms(torch, old_call, 'rvq_cascade'),
+                         equal_to_before=bool(torch.equal(codes, old)))
+            log(f'K1 M={M} n_q={K}: the earlier kernel (--before) {entry["before_ms"]:.4f} ms '
+                f'(on the device {fmt_ms(entry["before_device_ms"])}), codes bit-equal to it: '
+                f'{entry["equal_to_before"]}')
+        shapes.append(entry)
         if (M, K) == (750, 8):
-            summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=None)
+            summary = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
         else:
             summary['max_abs_err'] = max(summary['max_abs_err'], err)
+    summary['shapes'] = shapes
     return summary
 
 
@@ -353,9 +417,12 @@ def k2_phase(torch, lstm_kernel, gen):
     return summary
 
 
-def k3_phase(torch, seed, ckpt: Path):
-    """K3 against its plain version at the offline and tick shapes; returns
-    the summary over the 8 offline blocks."""
+def k3_phase(torch, seed, ckpt: Path, before=None):
+    """K3 against its plain version (the cuDNN sequence) at the offline and
+    tick shapes, streamed chunks against the offline call at the tick's four
+    widths, and with ``before`` (``--before``) the earlier kernel's output and
+    time on the same inputs. Returns the summary over the 8 offline blocks,
+    with the offline and tick shapes under ``shapes``."""
     from encodec_pytorch_tpu_torch.models.model import encodec_model_24khz
     from encodec_pytorch_tpu_torch.models.seanet import SEANetResnetBlock
     from encodec_pytorch_tpu_torch.ops import resblock_kernel as rk
@@ -385,8 +452,11 @@ def k3_phase(torch, seed, ckpt: Path):
     x32 = calls[0][0]
     cases += [('non-causal', x32, w32, False, None),
               ('ragged', x32[..., :1001].contiguous(), w32, True, None)]
-    tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
+    tot = {k: 0.0 for k in ('ms', 'device_ms', 'plain_ms', 'bound_ms')}
+    if before is not None:
+        tot.update(before_ms=0.0, before_device_ms=0.0)
     worst = 0.0
+    shapes = []
     for name, x, w, causal, left in cases:
         kw = dict(dilation=1, causal=causal, pad_mode='reflect', left=left)
         got = rk.resblock(x, *w, **kw)
@@ -399,18 +469,71 @@ def k3_phase(torch, seed, ckpt: Path):
         B, C, T = x.shape
         flops = 6.0 * C * C * B * T
         b_ms, b_by = bound_ms(flops, 4.0 * (2 * B * C * T + sum(t.numel() for t in w)))
+        dev_ms = device_ms(torch, lambda: rk.resblock(x, *w, **kw), 'resblock_kernel')
+        cfg = rk.launch_config(C, w[0].shape[0])
+        units = -(-T // cfg['tile']) * B
         log(f'K3 resblock {name} x {tuple(x.shape)}: max |d| {err:.3e} ({rel:.2e} of max), '
-            f'kernel {ms:.4f} ms, plain (pad, ELU, cuDNN conv1d x3, add) {plain_ms:.4f} ms, '
-            f'bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.3f} GFLOP)')
+            f'kernel {ms:.4f} ms (on the device {fmt_ms(dev_ms)}), plain (pad, ELU, cuDNN '
+            f'conv1d x3, add) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, '
+            f'{flops / 1e9:.3f} GFLOP); launch: clusters of {cfg["cluster"]} CTAs, '
+            f'{cfg["tile"]} columns a tile, {units} tiles x rows')
         check(rel <= K3_TOL_REL, f'K3 disagrees with its plain version: {name} {tuple(x.shape)}')
         worst = max(worst, err)
-        if name == 'offline':
-            for k, v in zip(tot, (ms, plain_ms, b_ms)):
-                tot[k] += v
-    log(f'K3 over the 8 blocks of a 10 s encode + decode: kernel {tot["ms"]:.3f} ms, plain '
-        f'{tot["plain_ms"]:.3f} ms, bound {tot["bound_ms"]:.3f} ms')
-    return dict(max_abs_err=worst, ms=tot['ms'], plain_ms=tot['plain_ms'],
-                bound_ms=tot['bound_ms'], bound_by='operations', library_ms=tot['plain_ms'])
+        entry = dict(case=name, shape=list(x.shape), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, max_abs_err=err, cluster=cfg['cluster'], tile=cfg['tile'])
+        if before is not None:
+            old = before.resblock_kernel.resblock(x, *w, **kw)
+            torch.cuda.synchronize()
+            old_call = lambda: before.resblock_kernel.resblock(x, *w, **kw)
+            entry.update(before_ms=cuda_ms(torch, old_call),
+                         before_device_ms=device_ms(torch, old_call, 'resblock_kernel'),
+                         equal_to_before=bool(torch.equal(got, old)))
+            log(f'K3 {name} x {tuple(x.shape)}: the earlier kernel (--before) '
+                f'{entry["before_ms"]:.4f} ms (on the device '
+                f'{fmt_ms(entry["before_device_ms"])}), output bit-equal to it: '
+                f'{entry["equal_to_before"]}')
+        if name in ('offline', 'tick'):
+            shapes.append(entry)
+        if name == 'offline':   # a total is not measured if one of its terms is not
+            for k in tot:
+                tot[k] = None if tot[k] is None or entry.get(k) is None else tot[k] + entry[k]
+        if name == 'tick':   # streamed chunks with a carried halo give the offline bits
+            offline = rk.resblock(x, *w, dilation=1, causal=True)
+            outs, halo, pos = [], None, 0
+            for n in (T // 2 + 3, T // 4, T - T // 2 - 3 - T // 4):
+                out, halo = rk.resblock(x[..., pos:pos + n].contiguous(), *w, dilation=1,
+                                        causal=True, left=halo, return_carry=True)
+                outs.append(out)
+                pos += n
+            same = bool(torch.equal(torch.cat(outs, -1), offline))
+            log(f'K3 streamed chunks at C {C}, T {T}: bit-equal to the offline call: {same}')
+            check(same, f'K3 streamed chunks differ from the offline call at C {C}')
+    log(f'K3 over the 8 blocks of a 10 s encode + decode: kernel {tot["ms"]:.3f} ms (on the '
+        f'device {fmt_ms(tot["device_ms"])}), plain {tot["plain_ms"]:.3f} ms, bound '
+        f'{tot["bound_ms"]:.3f} ms'
+        + (f', the earlier kernel {tot["before_ms"]:.3f} ms (on the device '
+           f'{fmt_ms(tot["before_device_ms"])})' if before is not None else ''))
+    return dict(max_abs_err=worst, ms=tot['ms'], device_ms=tot['device_ms'],
+                plain_ms=tot['plain_ms'], bound_ms=tot['bound_ms'], bound_by='operations',
+                library_ms=tot['plain_ms'], shapes=shapes)
+
+
+def load_before(path: Path):
+    """The kernel modules of another checkout of the port (``--before``),
+    imported as the package ``before_port`` beside this one; its kernels build
+    into that checkout's own ``build/``."""
+    import importlib
+    import importlib.util
+    pkg = Path(path).resolve() / 'encodec_pytorch_tpu_torch'
+    spec = importlib.util.spec_from_file_location('before_port', pkg / '__init__.py',
+                                                  submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules['before_port'] = module
+    spec.loader.exec_module(module)
+    ops = importlib.import_module('before_port.ops')
+    for name in ('_build', 'rvq_kernel', 'resblock_kernel'):
+        importlib.import_module(f'before_port.ops.{name}')
+    return ops
 
 
 @contextlib.contextmanager
@@ -421,7 +544,8 @@ def plain_path():
     from encodec_pytorch_tpu_torch.ops import disc_im2col_kernel as k5
     swaps = [(lstm_kernel, 'lstm_recurrence', lstm_kernel.lstm_recurrence_reference),
              (resblock_kernel, 'resblock', resblock_kernel.resblock_reference),
-             (rvq_kernel, 'rvq_encode', rvq_kernel.rvq_encode_reference),
+             (rvq_kernel, 'rvq_encode',
+              lambda x, embed, esq=None: rvq_kernel.rvq_encode_reference(x, embed)),
              (dck, 'disc_conv_forward', dck.disc_conv_forward_reference),
              (dck, 'disc_conv_input_grad', dck.disc_conv_input_grad_reference),
              (k5, 'disc_im2col_forward', k5.disc_im2col_forward_plain)]
@@ -1189,7 +1313,7 @@ def training_phase(torch, seed, tmp: Path, config: str = 'config'):
     return launches
 
 
-def run(seed: int) -> int:
+def run(seed: int, before_dir=None) -> int:
     try:
         import torch
     except ImportError:
@@ -1219,16 +1343,22 @@ def run(seed: int) -> int:
         if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
             log(f'  ptxas: {line.strip()}')
 
+    before = None
+    if before_dir is not None:
+        before = load_before(before_dir)
+        before._build.load()
+        log(f'--before {before_dir}: built in {before._build.BuildInfo.seconds:.2f} s -> '
+            f'{before._build.BuildInfo.path}')
     gen = torch.Generator(device='cuda').manual_seed(seed)
     phase('K1')
-    k1 = k1_phase(torch, rvq_kernel, gen)
+    k1 = k1_phase(torch, rvq_kernel, gen, before)
     phase('K2')
     k2 = k2_phase(torch, lstm_kernel, gen)
     with tempfile.TemporaryDirectory() as tmp:
         phase('codec CLI')
         cli_launches = main_path_phase(torch, seed, Path(tmp))
         phase('K3')
-        k3 = k3_phase(torch, seed, Path(tmp) / CKPT)
+        k3 = k3_phase(torch, seed, Path(tmp) / CKPT, before)
         phase('serving')
         serve_launches = serving_phase(torch, seed, Path(tmp) / CKPT)
     launches = {k: cli_launches[k] + serve_launches[k] for k in CODEC_KERNELS}
@@ -1291,9 +1421,12 @@ def run(seed: int) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--before', type=Path, default=None,
+                        help='another checkout of the port (e.g. the parent commit): the K1 '
+                             'and K3 phases also time its kernels and compare their bits')
     args = parser.parse_args()
     try:
-        return run(args.seed)
+        return run(args.seed, args.before)
     except (Exception, SystemExit) as e:   # any phase's failure fails the run
         traceback.print_exc()
         print(f'chip_smoke: FAILED: {e!r}', file=sys.stderr)

@@ -21,39 +21,60 @@
 // (3C*H + H*C + C*C multiply-adds at H = C/2) against 8 bytes a column and
 // channel moved, so from C = 32 on it sits above the f32 ridge (67 TFLOP/s
 // over 3.35 TB/s = 20 FLOP a byte). f32 on CUDA cores (no TF32, no fast math:
-// the block is held to its cuDNN sequence at 1e-5 relative).
+// the block is held to its cuDNN sequence at 1e-5 relative). At the mux tick
+// (B 16, 32 to 1280 columns) the work is small and the time is how many SMs
+// take part and how long each waits for its operands.
 //
-// Design. The TPU kernel staged 2048-sample tiles plus halo in VMEM and ran
-// three MXU matmuls; here one block of 256 threads takes one (time tile,
-// batch row):
-// - It stages the tile's raw input with its halo, xs [C][N + 2d], and the
-//   activated copy, as [C][N + 2d], in shared memory (ELU by expm1f, as
-//   nn.ELU; the halo from `left` is copied as it is).
-// - y1 = ELU(K1 * A + b1) is a [H x N] product over the 3C taps; it stays in
-//   shared memory (ys [H][N]). Then y2 = K2 * y1 + b2 and the shortcut
-//   ks * x + bs are two [C x N] products whose sum is written out.
-// - Each product is register-tiled: a thread owns 4 rows x 4 columns
-//   (columns tx + 16k.. strided so a warp's lanes read neighbouring words),
-//   and the weights stream through shared memory in chunks of 48 (k3 taps)
-//   or 16 (1x1) reduction rows, read as float4 broadcasts. So weights of any
-//   width fit: 393 KB of k1 at C = 256 never has to be resident.
-// - The tile width N = 8192 / C (32..256 columns) makes 4 rows a thread
-//   cover exactly H rows in one pass; the C-row products take two passes.
-// - Every output sums its terms in one fixed order (taps, then bias; y2 and
-//   the shortcut, then their sum) that does not depend on where its tile
-//   starts, so a streamed chunk gives the same bits as the offline call.
+// Design. A unit of work is one (time tile of N columns, batch row); its
+// output rows are split over a thread-block cluster of CL CTAs (CL 2 / 2 / 4
+// / 8 at C 32 / 64 / 128 / 256, and 8 for the wider blocks up to C 512), so
+// the tick's B 16 grid puts >= 128 CTAs on the card:
+// - Weights. A CTA needs only its H/CL rows of k1 and C/CL rows of k2 and ks.
+//   They stream through two shared buffers in chunks of KC1 (k1) or KC2 (k2,
+//   ks) reduction columns: one TMA tensor copy a chunk (a box of the CTA's
+//   rows x the chunk's columns, zeros past the matrix), issued by one thread
+//   a chunk ahead and completing on an mbarrier, also across products and
+//   units. So no global load is synchronous in a product. Up to C 256 a CTA's
+//   shared memory (at most ~108 KB) leaves room for two CTAs an SM; at C 512
+//   one CTA (~205 KB) takes an SM.
+// - The grid is persistent: as many clusters as fit on the card at once,
+//   each looping over units.
+// - Input. Each CTA stages the unit's raw tile, xr [C][N] (16-byte cp.async,
+//   every chunk in flight at once; the shortcut reads it), activates its own
+//   C/CL channels with their halos (ELU by expm1f, as nn.ELU; the halo from
+//   `left` is activated already) and stores them into every CTA's
+//   as [C][N + 2d] through distributed shared memory; `cluster.sync()`. Each
+//   sample is activated once a cluster, and remote stores need no round trip.
+// - It computes its H/CL rows of y1 = ELU(K1 * A + b1) and stores them into
+//   every CTA's y1 [H][N]; `cluster.sync()`; then its C/CL rows of
+//   K2 * y1 + b2 and the shortcut Ks * x + bs, and writes their sum. A CTA
+//   writes into a peer only after the barrier that the peer passes once it
+//   is done reading what is overwritten (the activations after the last
+//   unit's y1 barrier, y1 after the next unit's activation barrier).
+// - Each product is register-tiled: a thread owns RH rows x RT columns
+//   (columns strided by the column groups, so a warp's lanes read
+//   neighbouring words; a warp shares its rows, so the weights' float4 loads
+//   along the reduction are broadcasts).
+// - Every output sums its terms in one fixed order (taps in k1's own order
+//   c*3 + j, then bias; y2 over h and the shortcut over c', then their sum)
+//   that does not depend on the tile or the cluster rank: the bits equal the
+//   one-block-per-tile kernel this replaces, and a streamed chunk gives the
+//   same bits as the offline call.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+#include <mutex>
+
+#include "tma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int RH = 4;    // rows a thread owns in a product
-constexpr int RT = 4;    // columns a thread owns
-constexpr int KC1 = 48;  // reduction rows a chunk of the k3 product (16 channels x 3 taps)
-constexpr int KC2 = 16;  // reduction rows a chunk of the 1x1 products
+constexpr int STAGES = 2;    // weight chunks in shared memory: one in use, the next in flight
 
 __device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
 
@@ -68,162 +89,310 @@ __device__ __forceinline__ float padded_input(const float* xrow, int q, int T, i
     return (r >= 0 && r < T) ? xrow[r] : 0.f;
 }
 
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-resblock_kernel(const float* __restrict__ x, const float* __restrict__ left,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+    return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
+}
+
+// A tile of N columns; a thread owns RT columns (RT * 32 <= N) and RH1 rows
+// of y1, RH2 rows of the output; CL CTAs a cluster; weight chunks of KC1
+// columns of k1 (a multiple of 12: 4 channels x 3 taps) and KC2 of k2 and ks
+// (a multiple of 4).
+template <int N, int RT, int CL, int RH1, int RH2, int KC1, int KC2>
+__global__ void __launch_bounds__(THREADS, 2)   // two CTAs an SM: registers <= 128
+resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__ CUtensorMap map2,
+                const __grid_constant__ CUtensorMap map3, const float* __restrict__ x,
+                const float* __restrict__ left,
                 const float* __restrict__ k1, const float* __restrict__ b1,
                 const float* __restrict__ k2, const float* __restrict__ b2,
                 const float* __restrict__ ks, const float* __restrict__ bs,
                 float* __restrict__ out, float* __restrict__ carry_out,
-                int C, int H, int T, int d, int causal, int reflect) {
-    constexpr int CG = N / RT;           // column groups
-    constexpr int RG = THREADS / CG;     // row groups
-    constexpr int MP = RG * RH;          // rows a pass
-    extern __shared__ float smem[];
-    const int NP = N + 2 * d;
-    float* xs = smem;                    // [C][NP] raw input with halo
-    float* as = xs + (size_t)C * NP;     // [C][NP] activated
-    float* ys = as + (size_t)C * NP;     // [H][N]  y1
-    float* ws = ys + (size_t)H * N;      // [KC][MP] weight chunk
-
+                int C, int H, int T, int d, int causal, int reflect, int vec, int units,
+                int tiles) {
+    constexpr int CGN = N / RT;            // column groups (>= 32: a warp shares its rows)
+    constexpr int RGN = THREADS / CGN;     // row groups
+    constexpr int P1 = RGN * RH1, P2 = RGN * RH2;   // weight rows held, zeros past H or C
+    static_assert(CGN >= 32 && THREADS % CGN == 0, "a warp must share its rows");
+    static_assert(KC1 % 12 == 0 && KC2 % 4 == 0, "whole float4s of whole channels");
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
     const int tid = threadIdx.x;
-    const int tx = tid % CG, ty = tid / CG;
-    const int b = blockIdx.y;
-    const int t0 = blockIdx.x * N;
-    const int padL = causal ? 2 * d : d;
-    const float* xb = x + (size_t)b * C * T;
+    const int cg_ = tid % CGN, rg = tid / CGN;
+    const int padL = causal ? 2 * d : d, padR = causal ? 0 : d;
+    // a row of `as`: left halo, the tile from a 16-byte boundary, right halo
+    const int OFF = (padL + 3) & ~3, LDX = OFF + N + ((padR + 3) & ~3);
+    const int C4 = (C + 3) & ~3, H4 = (H + 3) & ~3;   // rows past C and H are zeros
+    constexpr int WBUF = ((P1 * KC1 > P2 * KC2 ? P1 * KC1 : P2 * KC2) + 31) / 32 * 32;
+    const int HS = (H + CL - 1) / CL, CS = (C + CL - 1) / CL;   // rows a CTA
+    const int h0 = rank * HS, c0 = rank * CS;
+    const int hv = max(0, min(HS, H - h0)), cv = max(0, min(CS, C - c0));
+    const int n1 = (3 * C + KC1 - 1) / KC1, n2 = (H + KC2 - 1) / KC2, n3 = (C + KC2 - 1) / KC2;
+    const int per_unit = n1 + n2 + n3;
+    const int first_unit = blockIdx.x / CL, stride = gridDim.x / CL;
+    const int total = (units - first_unit + stride - 1) / stride * per_unit;   // chunks
 
-    // stage the tile and its halo
-    for (int i = tid; i < C * NP; i += THREADS) {
-        const int c = i / NP, p = i % NP;
-        const int q = t0 - padL + p;
-        if (left != nullptr && q < 0) {
-            const float v = left[((size_t)b * C + c) * padL + (q + padL)];
-            xs[i] = v;
-            as[i] = v;
+    extern __shared__ float4 smem4[];
+    unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem4);   // [STAGES]
+    // the chunks: 128-byte aligned for TMA (the launch adds the slack)
+    float* ws = reinterpret_cast<float*>(smem4) + STAGES * 2;
+    ws += ((128 - (smem_u32(ws) & 127)) & 127) / 4;    // [STAGES][WBUF]
+    float* yf = ws + STAGES * WBUF;                    // [H4][N] y1, every CTA's rows
+    float* xr = yf + (size_t)H4 * N;                   // [C4][N] the tile's raw input
+    float* as = xr + (size_t)C4 * N;                   // [C4][LDX] activated, with halo
+
+    // chunk g (g % per_unit: k1's column chunks, then k2's, then ks's) of the
+    // weight rows this CTA needs, [rows][KC], into buffer g % STAGES: with
+    // `vec` one TMA box copy (zeros past the matrix) by thread 0, completing
+    // on bars[g % STAGES]; otherwise plain loads by every thread (C or H not
+    // a multiple of 4, off the main path)
+    auto issue = [&](int g) {
+        const int q = g % per_unit, buf = g % STAGES;
+        const CUtensorMap* map;
+        const float* src;
+        int R, KC, Ktot, k0, row0, valid;
+        if (q < n1) {
+            map = &map1; src = k1; R = P1; KC = KC1; Ktot = 3 * C; k0 = q * KC1; row0 = h0;
+            valid = hv;
+        } else if (q < n1 + n2) {
+            map = &map2; src = k2; R = P2; KC = KC2; Ktot = H; k0 = (q - n1) * KC2; row0 = c0;
+            valid = cv;
         } else {
-            const float v = padded_input(xb + (size_t)c * T, q, T, reflect, padL);
-            xs[i] = v;
-            as[i] = elu(v);
+            map = &map3; src = ks; R = P2; KC = KC2; Ktot = C; k0 = (q - n1 - n2) * KC2;
+            row0 = c0; valid = cv;
         }
-    }
-    if (carry_out != nullptr && blockIdx.x == 0) {
-        const int L = 2 * d;
-        for (int i = tid; i < C * L; i += THREADS) {
-            const int c = i / L, q = T - L + i % L;
-            float v = 0.f;   // (the wrapper asks for T >= 2d when there is no left)
-            if (q >= 0) v = elu(xb[(size_t)c * T + q]);
-            else if (left != nullptr) v = left[((size_t)b * C + c) * L + q + L];
-            carry_out[((size_t)b * C + c) * L + i % L] = v;
+        float* dst = ws + buf * WBUF;
+        if (vec) {
+            if (tid == 0) {
+                mbar_expect(&bars[buf], (unsigned)(R * KC * 4));
+                tensor_copy(dst, map, k0, row0, &bars[buf]);
+            }
+        } else {
+            for (int i = tid; i < R * KC; i += THREADS) {
+                const int r = i / KC, k = k0 + i - r * KC;
+                dst[i] = (r < valid && k < Ktot) ? src[(size_t)(row0 + r) * Ktot + k] : 0.f;
+            }
         }
-    }
+    };
+    // before chunk g is used: the chunk STAGES - 1 ahead starts loading into
+    // the buffer the last chunk freed, and chunk g must have landed
+    auto begin_chunk = [&](int g) {
+        if (g + STAGES - 1 < total) issue(g + STAGES - 1);
+        if (vec) mbar_wait(&bars[g % STAGES], (g / STAGES) & 1);
+        __syncthreads();
+    };
 
-    // y1 = ELU(K1 * A + b1): reduction index k = c*3 + j, k1's own order
-    const int K1n = 3 * C;
-    for (int m0 = 0; m0 < H; m0 += MP) {
-        float acc[RH][RT];
-#pragma unroll
-        for (int r = 0; r < RH; ++r)
-#pragma unroll
-            for (int n = 0; n < RT; ++n) acc[r][n] = 0.f;
-        for (int k0 = 0; k0 < K1n; k0 += KC1) {
-            __syncthreads();
-            for (int i = tid; i < KC1 * MP; i += THREADS) {
-                const int mm = i / KC1, kk = i % KC1;
-                const int m = m0 + mm, k = k0 + kk;
-                ws[kk * MP + mm] = (m < H && k < K1n) ? k1[(size_t)m * K1n + k] : 0.f;
-            }
-            __syncthreads();
-            const int c0 = k0 / 3;
-#pragma unroll
-            for (int kk = 0; kk < KC1; ++kk) {
-                const int c = min(c0 + kk / 3, C - 1);   // past C the weights are 0
-                const float* arow = as + (size_t)c * NP + (kk % 3) * d;
-                float a[RT];
-#pragma unroll
-                for (int n = 0; n < RT; ++n) a[n] = arow[tx + CG * n];
-                const float4 w = *reinterpret_cast<const float4*>(ws + kk * MP + ty * RH);
-                const float wv[RH] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-                for (int r = 0; r < RH; ++r)
-#pragma unroll
-                    for (int n = 0; n < RT; ++n) acc[r][n] = fmaf(wv[r], a[n], acc[r][n]);
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < RH; ++r) {
-            const int m = m0 + ty * RH + r;
-            if (m < H) {
-#pragma unroll
-                for (int n = 0; n < RT; ++n) ys[m * N + tx + CG * n] = elu(acc[r][n] + b1[m]);
-            }
-        }
+    if (vec && tid == 0) {
+        for (int i = 0; i < STAGES; ++i) mbar_init(&bars[i], 1);
+        mbar_fence_init();
     }
+    for (int g = 0; g < STAGES - 1 && g < total; ++g) issue(g);
+    for (int i = tid; i < (C4 - C) * N; i += THREADS) xr[C * N + i] = 0.f;
+    for (int i = tid; i < (C4 - C) * LDX; i += THREADS) as[(size_t)C * LDX + i] = 0.f;
+    for (int i = tid; i < (H4 - H) * N; i += THREADS) yf[(size_t)H * N + i] = 0.f;
+    cluster.sync();   // every CTA runs (and its barriers are initialised)
+    const int xvec = (T % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0) ? 1 : 0;
 
-    // out = (K2 * y1 + b2) + (Ks * x + bs)
-    for (int m0 = 0; m0 < C; m0 += MP) {
-        float acc[RH][RT], sc[RH][RT];
+    int g = 0;   // chunks used so far
+    for (int u = first_unit; u < units; u += stride) {
+        const int b = u / tiles, tile = u - b * tiles;
+        const int t0 = tile * N;
+        const float* xb = x + (size_t)b * C * T;
+
+        // stage the unit's raw input: the tile by 16-byte cp.async where it
+        // lies inside [0, T), the ragged end by plain loads under the padding
+        for (int i = tid; i < C * (N / 4); i += THREADS) {
+            const int c = i / (N / 4), n = (i - c * (N / 4)) * 4;
+            const int q = t0 + n;
+            float* dst = xr + (size_t)c * N + n;
+            const float* xrow = xb + (size_t)c * T;
+            if (xvec && q + 4 <= T) {
+                cp_async16(dst, xrow + q);
+            } else {
 #pragma unroll
-        for (int r = 0; r < RH; ++r)
-#pragma unroll
-            for (int n = 0; n < RT; ++n) acc[r][n] = sc[r][n] = 0.f;
-        for (int k0 = 0; k0 < H; k0 += KC2) {
-            __syncthreads();
-            for (int i = tid; i < KC2 * MP; i += THREADS) {
-                const int mm = i / KC2, kk = i % KC2;
-                const int m = m0 + mm, k = k0 + kk;
-                ws[kk * MP + mm] = (m < C && k < H) ? k2[(size_t)m * H + k] : 0.f;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < KC2; ++kk) {
-                const float* yrow = ys + (size_t)min(k0 + kk, H - 1) * N;
-                float a[RT];
-#pragma unroll
-                for (int n = 0; n < RT; ++n) a[n] = yrow[tx + CG * n];
-                const float4 w = *reinterpret_cast<const float4*>(ws + kk * MP + ty * RH);
-                const float wv[RH] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-                for (int r = 0; r < RH; ++r)
-#pragma unroll
-                    for (int n = 0; n < RT; ++n) acc[r][n] = fmaf(wv[r], a[n], acc[r][n]);
+                for (int e = 0; e < 4; ++e) dst[e] = padded_input(xrow, q + e, T, reflect, padL);
             }
         }
-        for (int k0 = 0; k0 < C; k0 += KC2) {
-            __syncthreads();
-            for (int i = tid; i < KC2 * MP; i += THREADS) {
-                const int mm = i / KC2, kk = i % KC2;
-                const int m = m0 + mm, k = k0 + kk;
-                ws[kk * MP + mm] = (m < C && k < C) ? ks[(size_t)m * C + k] : 0.f;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < KC2; ++kk) {
-                const float* xrow = xs + (size_t)min(k0 + kk, C - 1) * NP + padL;
-                float a[RT];
-#pragma unroll
-                for (int n = 0; n < RT; ++n) a[n] = xrow[tx + CG * n];
-                const float4 w = *reinterpret_cast<const float4*>(ws + kk * MP + ty * RH);
-                const float wv[RH] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-                for (int r = 0; r < RH; ++r)
-#pragma unroll
-                    for (int n = 0; n < RT; ++n) sc[r][n] = fmaf(wv[r], a[n], sc[r][n]);
+        cp_async_commit();
+        if (carry_out != nullptr && tile == 0 && rank == 0) {
+            const int L = 2 * d;
+            for (int i = tid; i < C * L; i += THREADS) {
+                const int c = i / L, q = T - L + i % L;
+                float v = 0.f;   // (the wrapper asks for T >= 2d when there is no left)
+                if (q >= 0) v = elu(xb[(size_t)c * T + q]);
+                else if (left != nullptr) v = left[((size_t)b * C + c) * L + q + L];
+                carry_out[((size_t)b * C + c) * L + i % L] = v;
             }
         }
+        cp_async_wait_all();
+        __syncthreads();
+        // activate this CTA's channels and write them into every CTA's `as`:
+        // the tile a float4 at a time, then the halos (from `left`, activated
+        // already, or from the input under the padding)
+        for (int i = tid; i < cv * (N / 4); i += THREADS) {
+            const int r = i / (N / 4), n = (i - r * (N / 4)) * 4;
+            float4 v = *reinterpret_cast<const float4*>(xr + (size_t)(c0 + r) * N + n);
+            v.x = elu(v.x);
+            v.y = elu(v.y);
+            v.z = elu(v.z);
+            v.w = elu(v.w);
+            const size_t at = (size_t)(c0 + r) * LDX + OFF + n;
 #pragma unroll
-        for (int r = 0; r < RH; ++r) {
-            const int m = m0 + ty * RH + r;
-            if (m < C) {
-                float* orow = out + ((size_t)b * C + m) * T;
+            for (int q = 0; q < CL; ++q)
+                *reinterpret_cast<float4*>(cluster.map_shared_rank(as, q) + at) = v;
+        }
+        for (int i = tid; i < cv * (padL + padR); i += THREADS) {
+            const int r = i / (padL + padR), p = i - r * (padL + padR), c = c0 + r;
+            const int q = p < padL ? t0 - padL + p : t0 + N + p - padL;
+            const float v = (left != nullptr && q < 0)
+                                ? left[((size_t)b * C + c) * padL + q + padL]
+                                : elu(padded_input(xb + (size_t)c * T, q, T, reflect, padL));
+            const size_t at = (size_t)c * LDX + (p < padL ? OFF - padL + p : OFF + N + p - padL);
 #pragma unroll
-                for (int n = 0; n < RT; ++n) {
-                    const int t = t0 + tx + CG * n;
-                    if (t < T) orow[t] = (acc[r][n] + b2[m]) + (sc[r][n] + bs[m]);
+            for (int k = 0; k < CL; ++k) cluster.map_shared_rank(as, k)[at] = v;
+        }
+        cluster.sync();   // every CTA's `as` holds every channel
+
+        // y1 = ELU(K1 * A + b1): reduction index k = c*3 + j, k1's own order
+        {
+            float acc[RH1][RT];
+#pragma unroll
+            for (int r = 0; r < RH1; ++r)
+#pragma unroll
+                for (int n = 0; n < RT; ++n) acc[r][n] = 0.f;
+            const float* abase = as + OFF - padL + cg_;
+            for (int q = 0; q < n1; ++q, ++g) {
+                begin_chunk(g);
+                const float* wr = ws + (g % STAGES) * WBUF + rg * RH1 * KC1;
+                const int kb = q * KC1;
+                const int kc = min(KC1, (3 * C - kb + 11) / 12 * 12);   // past 3C the weights are 0
+                for (int kk = 0; kk < kc; kk += 12) {
+                    float4 wv[RH1][3];
+#pragma unroll
+                    for (int r = 0; r < RH1; ++r)
+#pragma unroll
+                        for (int v = 0; v < 3; ++v)
+                            wv[r][v] = *reinterpret_cast<const float4*>(wr + r * KC1 + kk + 4 * v);
+                    // 4 channels x 3 taps; past C the rows and the weights are 0
+                    const float* arow = abase + (size_t)((kb + kk) / 3) * LDX;
+#pragma unroll
+                    for (int e = 0; e < 12; ++e) {
+                        if (e % 3 == 0 && e > 0) arow += LDX;
+                        float a[RT];
+#pragma unroll
+                        for (int n = 0; n < RT; ++n) a[n] = arow[(e % 3) * d + CGN * n];
+#pragma unroll
+                        for (int r = 0; r < RH1; ++r) {
+                            const float w = lane_of(wv[r][e / 4], e % 4);
+#pragma unroll
+                            for (int n = 0; n < RT; ++n) acc[r][n] = fmaf(w, a[n], acc[r][n]);
+                        }
+                    }
+                }
+                __syncthreads();   // the buffer is free for the copy STAGES chunks on
+            }
+            // this CTA's rows of y1, into every CTA's yf
+#pragma unroll
+            for (int r = 0; r < RH1; ++r) {
+                const int hr = rg * RH1 + r, h = h0 + hr;
+                if (hr < hv) {
+#pragma unroll
+                    for (int n = 0; n < RT; ++n) {
+                        const float v = elu(acc[r][n] + b1[h]);
+#pragma unroll
+                        for (int q = 0; q < CL; ++q)
+                            cluster.map_shared_rank(yf, q)[(size_t)h * N + cg_ + CGN * n] = v;
+                    }
                 }
             }
         }
+        cluster.sync();   // every CTA's yf holds every row of y1
+
+        // out = (K2 * y1 + b2) + (Ks * x + bs)
+        {
+            float acc[RH2][RT], sc[RH2][RT];
+#pragma unroll
+            for (int r = 0; r < RH2; ++r)
+#pragma unroll
+                for (int n = 0; n < RT; ++n) acc[r][n] = sc[r][n] = 0.f;
+            for (int q = 0; q < n2; ++q, ++g) {
+                begin_chunk(g);
+                const float* wr = ws + (g % STAGES) * WBUF + rg * RH2 * KC2;
+                const int kb = q * KC2, kc = min(KC2, (H - kb + 3) & ~3);
+                for (int kk = 0; kk < kc; kk += 4) {
+                    float4 wv[RH2];
+#pragma unroll
+                    for (int r = 0; r < RH2; ++r)
+                        wv[r] = *reinterpret_cast<const float4*>(wr + r * KC2 + kk);
+                    const float* ybase = yf + (size_t)(kb + kk) * N + cg_;   // past H: 0
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float* yrow = ybase + e * N;
+                        float a[RT];
+#pragma unroll
+                        for (int n = 0; n < RT; ++n) a[n] = yrow[CGN * n];
+#pragma unroll
+                        for (int r = 0; r < RH2; ++r) {
+                            const float w = lane_of(wv[r], e);
+#pragma unroll
+                            for (int n = 0; n < RT; ++n) acc[r][n] = fmaf(w, a[n], acc[r][n]);
+                        }
+                    }
+                }
+                __syncthreads();
+            }
+            for (int q = 0; q < n3; ++q, ++g) {
+                begin_chunk(g);
+                const float* wr = ws + (g % STAGES) * WBUF + rg * RH2 * KC2;
+                const int kb = q * KC2, kc = min(KC2, (C - kb + 3) & ~3);
+                for (int kk = 0; kk < kc; kk += 4) {
+                    float4 wv[RH2];
+#pragma unroll
+                    for (int r = 0; r < RH2; ++r)
+                        wv[r] = *reinterpret_cast<const float4*>(wr + r * KC2 + kk);
+                    const float* xbase = xr + (size_t)(kb + kk) * N + cg_;   // past C: 0
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float* xrow = xbase + e * N;
+                        float a[RT];
+#pragma unroll
+                        for (int n = 0; n < RT; ++n) a[n] = xrow[CGN * n];
+#pragma unroll
+                        for (int r = 0; r < RH2; ++r) {
+                            const float w = lane_of(wv[r], e);
+#pragma unroll
+                            for (int n = 0; n < RT; ++n) sc[r][n] = fmaf(w, a[n], sc[r][n]);
+                        }
+                    }
+                }
+                __syncthreads();
+            }
+#pragma unroll
+            for (int r = 0; r < RH2; ++r) {
+                const int cr = rg * RH2 + r, m = c0 + cr;
+                if (cr < cv) {
+                    float* orow = out + ((size_t)b * C + m) * T;
+#pragma unroll
+                    for (int n = 0; n < RT; ++n) {
+                        const int t = t0 + cg_ + CGN * n;
+                        if (t < T) orow[t] = (acc[r][n] + b2[m]) + (sc[r][n] + bs[m]);
+                    }
+                }
+            }
+        }
+        __syncthreads();   // xr is free for the next unit
     }
+    // (no CTA writes into another after the last unit's y1 barrier, so each
+    // may leave)
 }
 
 constexpr int MAX_DEVICES = 64;
@@ -238,36 +407,109 @@ int max_smem_optin(int device) {
     return v;
 }
 
-template <int N>
+template <int N, int RT, int CL, int RH1, int RH2, int KC1, int KC2>
 cudaError_t launch(const float* x, const float* left, const float* k1, const float* b1,
                    const float* k2, const float* b2, const float* ks, const float* bs,
                    float* out, float* carry_out, int B, int C, int H, int T, int d, int causal,
                    int reflect, int device, cudaStream_t stream) {
-    constexpr int MP = (THREADS / (N / RT)) * RH;
-    const size_t smem = sizeof(float) * (2 * (size_t)C * (N + 2 * d) + (size_t)H * N
-                                         + (size_t)KC1 * MP);
+    constexpr int RGN = THREADS / (N / RT);
+    constexpr int P1 = RGN * RH1, P2 = RGN * RH2;
+    auto kernel = resblock_kernel<N, RT, CL, RH1, RH2, KC1, KC2>;
+    if ((H + CL - 1) / CL > P1 || (C + CL - 1) / CL > P2) return cudaErrorInvalidValue;
+    const int padL = causal ? 2 * d : d, padR = causal ? 0 : d;
+    const int LDX = ((padL + 3) & ~3) + N + ((padR + 3) & ~3);
+    constexpr int WBUF = ((P1 * KC1 > P2 * KC2 ? P1 * KC1 : P2 * KC2) + 31) / 32 * 32;
+    const size_t C4 = (C + 3) & ~3, H4 = (H + 3) & ~3;
+    const size_t smem = 8 * STAGES + 128   // the barriers, the chunks' alignment
+                        + sizeof(float) * ((size_t)STAGES * WBUF + H4 * N + C4 * N + C4 * LDX);
     const int max_smem = max_smem_optin(device);
     if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-    // the kernel may take up to the opt-in limit: set once per device
     static std::atomic<bool> configured[MAX_DEVICES];
     if (!configured[device].load(std::memory_order_relaxed)) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            resblock_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
         if (err != cudaSuccess) return err;
         configured[device].store(true, std::memory_order_relaxed);
     }
-    const dim3 grid((T + N - 1) / N, B);
-    resblock_kernel<N><<<grid, THREADS, smem, stream>>>(x, left, k1, b1, k2, b2, ks, bs, out,
-                                                        carry_out, C, H, T, d, causal, reflect);
+    const auto aligned = [](const float* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+    const int vec = (C % 4 == 0 && H % 4 == 0 && aligned(k1) && aligned(k2) && aligned(ks)) ? 1 : 0;
+    const long long tiles = (T + N - 1) / N, units = tiles * B;
+    if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+    // the weights in boxes of a chunk's columns x the rows a CTA holds
+    CUtensorMap map1{}, map2{}, map3{};
+    if (vec) {
+        cudaError_t err = encodec_tensor_map_2d(k1, H, 3 * C, P1, KC1, false, &map1);
+        if (err == cudaSuccess) err = encodec_tensor_map_2d(k2, C, H, P2, KC2, false, &map2);
+        if (err == cudaSuccess) err = encodec_tensor_map_2d(ks, C, C, P2, KC2, false, &map3);
+        if (err != cudaSuccess) return err;
+    }
+
+    cudaLaunchConfig_t cfg = {};
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // persistent clusters: as many as fit on the card at once (asked once
+    // per device and shared-memory size), each looping over units
+    static std::mutex lock;
+    static int fit_device = -1, fit = 0;
+    static size_t fit_smem = 0;
+    int clusters;
+    {
+        std::lock_guard<std::mutex> guard(lock);
+        if (fit_device != device || fit_smem != smem) {
+            cfg.gridDim = dim3(CL, 1, 1);
+            const cudaError_t err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+            if (err != cudaSuccess) return err;
+            fit_device = device;
+            fit_smem = smem;
+        }
+        clusters = fit;
+    }
+    if (clusters <= 0) return cudaErrorInvalidConfiguration;
+    if ((long long)clusters > units) clusters = static_cast<int>(units);
+    cfg.gridDim = dim3(static_cast<unsigned>(clusters * CL), 1, 1);
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map1, map2, map3, x, left, k1, b1, k2,
+                                               b2, ks, bs, out, carry_out, C, H, T, d, causal,
+                                               reflect, vec, static_cast<int>(units),
+                                               static_cast<int>(tiles));
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
+}
+
+// The width class of a block: by the wider of C and 2H (H = C/2 in SEANet);
+// 0 past 512, where the input tile no longer fits a CTA's shared memory.
+int width_class(int C, int H) {
+    const int w = C > 2 * H ? C : 2 * H;
+    return w <= 32 ? 32 : w <= 64 ? 64 : w <= 128 ? 128 : w <= 256 ? 256 : w <= 512 ? 512 : 0;
 }
 
 }  // namespace
 
+// The launch shape of a block of C channels and H hidden: the cluster size
+// and the columns of a tile (0 and 0: wider than the kernel takes).
+extern "C" void encodec_resblock_config(int C, int H, int* cluster, int* tile) {
+    *cluster = 0;
+    *tile = 0;
+    switch (width_class(C, H)) {
+        case 32: *cluster = 2; *tile = 256; break;
+        case 64: *cluster = 2; *tile = 128; break;
+        case 128: *cluster = 4; *tile = 64; break;
+        case 256: case 512: *cluster = 8; *tile = 32; break;
+        default: break;
+    }
+}
+
 // x [B, C, T], k1 [H, C, 3], b1 [H], k2 [C, H], b2 [C], ks [C, C], bs [C] (f32,
-// contiguous, on `device`); left and carry_out [B, C, 2d] or null (left only
-// when causal). Writes out [B, C, T]. Launches on `stream`; returns a
-// cudaError_t.
+// contiguous, on `device`; C and 2H at most 512); left and carry_out
+// [B, C, 2d] or null (left only when causal). Writes out [B, C, T]. Launches
+// on `stream`; returns a cudaError_t (a refused cluster launch included).
 extern "C" int encodec_resblock_f32(const float* x, const float* left, const float* k1,
                                     const float* b1, const float* k2, const float* b2,
                                     const float* ks, const float* bs, float* out,
@@ -280,18 +522,19 @@ extern "C" int encodec_resblock_f32(const float* x, const float* left, const flo
     if (err != cudaSuccess) return err;
     if (B <= 0 || T <= 0) return cudaSuccess;
     if (C <= 0 || H <= 0 || d <= 0 || (left != nullptr && !causal)) return cudaErrorInvalidValue;
-    if ((long long)B > 65535) return cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    // N = 8192 / C columns a tile, so that MP = 4096 / N = C / 2 = H rows a pass
-    if (C <= 32)
-        return launch<256>(x, left, k1, b1, k2, b2, ks, bs, out, carry_out, B, C, H, T, d, causal,
-                           reflect, device, s);
-    if (C <= 64)
-        return launch<128>(x, left, k1, b1, k2, b2, ks, bs, out, carry_out, B, C, H, T, d, causal,
-                           reflect, device, s);
-    if (C <= 128)
-        return launch<64>(x, left, k1, b1, k2, b2, ks, bs, out, carry_out, B, C, H, T, d, causal,
-                          reflect, device, s);
-    return launch<32>(x, left, k1, b1, k2, b2, ks, bs, out, carry_out, B, C, H, T, d, causal,
-                      reflect, device, s);
+#define RESBLOCK_LAUNCH(...)                                                               \
+    return launch<__VA_ARGS__>(x, left, k1, b1, k2, b2, ks, bs, out, carry_out, B, C, H, T, d, \
+                               causal, reflect, device, s)
+    // <N, RT, CL, RH1, RH2, KC1, KC2>: N / RT column groups, 256 / (N / RT) row
+    // groups; at C 512 half-width chunks keep the shared memory under 227 KB
+    switch (width_class(C, H)) {
+        case 32: RESBLOCK_LAUNCH(256, 2, 2, 4, 8, 192, 96);
+        case 64: RESBLOCK_LAUNCH(128, 2, 2, 4, 8, 192, 96);
+        case 128: RESBLOCK_LAUNCH(64, 1, 4, 4, 8, 192, 96);
+        case 256: RESBLOCK_LAUNCH(32, 1, 8, 2, 4, 192, 96);
+        case 512: RESBLOCK_LAUNCH(32, 1, 8, 4, 8, 96, 48);
+        default: return cudaErrorInvalidValue;
+    }
+#undef RESBLOCK_LAUNCH
 }

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface, at first use, for Hopper: one nvcc per source, all started
-together, then one link::
+Every ``csrc/*.cu`` file (with the headers ``csrc/*.cuh`` they share) is
+compiled into one shared library with a plain C interface, at first use, for
+Hopper: one nvcc per source, all started together, then one link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas=-v -c -o <src>.o csrc/<src>.cu     # each source
@@ -66,7 +66,7 @@ def _sources():
 
 def _library_path() -> Path:
     digest = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob('*.cu*')):   # the sources and the headers they share
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f'libencodec_kernels_{digest.hexdigest()[:16]}.so'
@@ -106,9 +106,11 @@ def _compile(out: Path) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.encodec_rvq_encode_f32.restype = i
-    lib.encodec_rvq_encode_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.encodec_rvq_encode_f32.argtypes = [p, ll, ll, ll, i, p, p, p] + [i] * 5 + [p]
+    lib.encodec_rvq_config.restype = None
+    lib.encodec_rvq_config.argtypes = [i, i, p, p, p]
     lib.encodec_lstm_recurrence_f32.restype = i
     lib.encodec_lstm_recurrence_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
     lib.encodec_disc_conv_fwd_f32.restype = i
@@ -121,6 +123,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.encodec_disc_im2col_fwd_f32.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.encodec_resblock_f32.restype = i
     lib.encodec_resblock_f32.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.encodec_resblock_config.restype = None
+    lib.encodec_resblock_config.argtypes = [i, i, p, p]
     lib.encodec_cuda_error_string.restype = ctypes.c_char_p
     lib.encodec_cuda_error_string.argtypes = [i]
 

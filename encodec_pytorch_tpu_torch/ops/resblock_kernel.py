@@ -17,7 +17,8 @@ NCT). It replaces the left padding. With ``return_carry`` the functions also
 return the next chunk's halo.
 
 :func:`resblock` launches the kernel for CUDA tensors (one launch a block, the
-padding and both activations included) and runs :func:`resblock_reference`
+padding and both activations included, each time tile split over a
+thread-block cluster by output rows) and runs :func:`resblock_reference`
 only for CPU tensors. The TPU kernel's 2048-sample tiles, NTC transposes and
 ``Tpad`` rounding were VMEM and lane rules and are not carried over.
 """
@@ -32,6 +33,9 @@ from . import _build
 from .pad import pad1d
 
 PAD_MODES = ('reflect', 'zero', 'constant')
+# the widest block K3 takes (C and 2H): every CTA of a cluster holds the
+# tile's whole input and y1, which past C 512 outgrow its shared memory
+MAX_CHANNELS = 512
 
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -90,10 +94,22 @@ def _refuse(x, k1, b1, k2, b2, ks, bs, tensors, dilation: int, pad_mode: str) ->
         raise ValueError(f'resblock: dilation {dilation} < 1')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('resblock: inputs must be contiguous')
+    if x.shape[1] > MAX_CHANNELS or 2 * k1.shape[0] > MAX_CHANNELS:
+        raise ValueError(f'resblock: C {x.shape[1]} and 2H {2 * k1.shape[0]} must be at most '
+                         f'{MAX_CHANNELS}')
     raise ValueError(f'resblock: weights k1 {tuple(k1.shape)}, b1 {tuple(b1.shape)}, '
                      f'k2 {tuple(k2.shape)}, b2 {tuple(b2.shape)}, ks {tuple(ks.shape)}, '
                      f'bs {tuple(bs.shape)} do not make [H, C, 3], [H], [C, H], [C], '
                      f'[C, C], [C] at C = {x.shape[1]}')
+
+
+def launch_config(C: int, H: int) -> dict:
+    """The launch K3 makes for a block of ``C`` channels and ``H`` hidden: the
+    cluster size (CTAs that split the output rows) and the columns of a tile
+    (both 0 past :data:`MAX_CHANNELS`)."""
+    out = [ctypes.c_int() for _ in range(2)]
+    _build.load().encodec_resblock_config(C, H, *(ctypes.byref(v) for v in out))
+    return dict(zip(('cluster', 'tile'), (v.value for v in out)))
 
 
 def resblock(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
@@ -116,7 +132,8 @@ def resblock(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tens
                     for t in tensors)
             and k1.shape == (H, C, 3) and k2.shape[:2] == (C, H) and k2.numel() == C * H
             and ks.shape[:2] == (C, C) and ks.numel() == C * C
-            and b1.shape == (H,) and b2.shape == (C,) and bs.shape == (C,)):
+            and b1.shape == (H,) and b2.shape == (C,) and bs.shape == (C,)
+            and C <= MAX_CHANNELS and 2 * H <= MAX_CHANNELS):
         _refuse(x, k1, b1, k2, b2, ks, bs, tensors, dilation, pad_mode)
     _check_halo(x, left, dilation, causal, return_carry)
     B, _, T = shape

@@ -6,7 +6,9 @@ modules laid out as the reference torch checkpoint
 so a released ``.th`` loads with ``strict=True``.
 
 :func:`rvq_encode` reaches kernel K1 on CUDA; :func:`rvq_decode` is a plain
-gather-and-sum. The training side (:func:`rvq_forward`) is plain PyTorch, as
+gather-and-sum. Both read the stacked codebooks (and K1 their squared norms)
+from :meth:`ResidualVectorQuantization.tables`, cached until a codebook
+changes. The training side (:func:`rvq_forward`) is plain PyTorch, as
 the JAX package's is plain XLA: per stage, k-means init on the first batch,
 nearest code (``argmax 2·x·Eᵀ − ‖E‖²``), EMA update (decay 0.99, Laplace
 ε 1e-5), dead-code expiry that really replaces dead codes (the reference's
@@ -56,10 +58,27 @@ class ResidualVectorQuantization(nn.Module):
     def __init__(self, n_q: int, dim: int, bins: int):
         super().__init__()
         self.layers = nn.ModuleList(VectorQuantization(dim, bins) for _ in range(n_q))
+        self._tables: Dict[int, tuple] = {}
 
     def embeds(self, n_q: int) -> torch.Tensor:
         """The first ``n_q`` codebooks stacked, ``[n_q, bins, dim]``."""
         return torch.stack([layer._codebook.embed for layer in self.layers[:n_q]])
+
+    def tables(self, n_q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """What the eval search reads: the first ``n_q`` codebooks stacked,
+        ``[n_q, bins, dim]``, and their squared norms ``[n_q, bins]``. Cached
+        per ``n_q`` until a codebook is replaced, moved or changed in place
+        (an EMA update, :meth:`set_states`, ``load_state_dict``); treat them
+        as read-only."""
+        bufs = [layer._codebook.embed for layer in self.layers[:n_q]]
+        key = tuple((b.data_ptr(), b._version) for b in bufs)
+        hit = self._tables.get(n_q)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                embed = torch.stack(bufs)
+                hit = (key, (embed, rvq_kernel.codebook_sq_norms(embed)))
+            self._tables[n_q] = hit
+        return hit[1]
 
     def states(self) -> List['StageState']:
         return [StageState(l._codebook.inited, l._codebook.cluster_size, l._codebook.embed,
@@ -75,14 +94,15 @@ class ResidualVectorQuantization(nn.Module):
                     buf.copy_(new)
 
 
-def rvq_encode(embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def rvq_encode(embed: torch.Tensor, x: torch.Tensor,
+               esq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy residual nearest-code search over every stage of ``embed``.
 
-    ``embed [K, N, D]``, ``x [B, T, D]`` → codes ``[K, B, T]`` int32.
+    ``embed [K, N, D]``, ``x [B, T, D]`` (any strides) → codes ``[K, B, T]``
+    int32. ``esq``: the codebooks' squared norms, when the caller caches them
+    (:meth:`ResidualVectorQuantization.tables`).
     """
-    B, T, D = x.shape
-    codes = rvq_kernel.rvq_encode(x.reshape(B * T, D).contiguous(), embed.contiguous())
-    return codes.reshape(embed.shape[0], B, T)
+    return rvq_kernel.rvq_encode(x, embed.contiguous(), esq)
 
 
 def rvq_decode(embed: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

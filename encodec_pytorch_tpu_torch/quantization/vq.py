@@ -40,11 +40,12 @@ class ResidualVectorQuantizer(nn.Module):
                bandwidth: Optional[float] = None) -> torch.Tensor:
         """``x [B, T, D]`` → codes ``[K, B, T]`` int32."""
         n_q = self.num_quantizers_for_bandwidth(frame_rate, bandwidth)
-        return rvq_encode(self.vq.embeds(n_q), x)
+        embed, esq = self.vq.tables(n_q)
+        return rvq_encode(embed, x, esq)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """codes ``[K, B, T]`` → ``[B, T, D]``."""
-        return rvq_decode(self.vq.embeds(codes.shape[0]), codes)
+        return rvq_decode(self.vq.tables(codes.shape[0])[0], codes)
 
     def forward_train(self, x: torch.Tensor, n_q: int,
                       generator: Optional[torch.Generator] = None,

@@ -9,8 +9,10 @@ machine, where ``tests/conftest.py`` (which needs jax) cannot load:
 Shapes are ragged on purpose: rows and bins that are not multiples of the RVQ
 kernel's tiles, and hidden sizes that do not divide the LSTM kernel's grid.
 Bars: RVQ codes equal except where the first difference is a near-tie (the
-rule of ``chip_smoke.rvq_first_differences``), exact ties go to the lower
-index, LSTM hidden states within 1e-5 at T <= 50, at B from 1 to 40 (one
+rule of ``chip_smoke.rvq_first_differences``) at every rows-a-tile of the
+cluster kernel, with ragged and empty bin slices; exact ties go to the lower
+index, also across two CTAs' slices; strided latents give a contiguous copy's
+codes; LSTM hidden states within 1e-5 at T <= 50, at B from 1 to 40 (one
 batch pass of 16 rows and several) and at H that leaves a short last block;
 chunks of 1, 4 or 7 steps with a carried (h, c) give the bits of one call. The
 discriminator conv (K4, 3xTF32 on the tensor cores): forward and input
@@ -23,8 +25,14 @@ autograd wrapper against autograd of the plain recurrence. K2 with a carried
 the call without a state. The fused resblock (K3) within 1e-5 · max|ref| of
 its plain version (``F.conv1d`` with TF32 off) at every width of the model,
 dilation 1 and 2, causal and not, reflect and zero padding, ragged and short
-T, and with a streaming halo; chunks streamed through it bit-equal to the
-offline call on the same samples. K5 (the discriminator's im2col conv) within
+T, with a streaming halo and at the mux tick's four shapes; chunks streamed
+through it bit-equal to the offline call on the same samples at all four
+widths, at C 512 and at C 36 (not a multiple of 4), with unaligned inputs and
+weights (plain loads instead of cp.async and TMA); a SEANet block of 512
+channels runs K3. K1 likewise at D 130, with unaligned codebooks, and with a
+stage's slice in two buffers (M 2048 and 12000, ties across the buffers). The
+launch shapes (K1's cluster and rows a tile, K3's cluster and tile) are the
+documented ones. K5 (the discriminator's im2col conv) within
 1e-5 · max|ref| of its plain version and of ``F.conv2d`` at ragged tiles and
 every T dilation, its trainable route's three gradients likewise; a
 ``time_group_norm`` model on the card never takes K3 and matches the CPU.
@@ -35,6 +43,7 @@ import torch
 
 import chip_smoke
 from encodec_pytorch_tpu_torch.models.model import EncodecModel
+from encodec_pytorch_tpu_torch.models.seanet import SEANetResnetBlock
 from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
 from encodec_pytorch_tpu_torch.ops import disc_im2col_kernel as k5
 from encodec_pytorch_tpu_torch.ops import lstm, lstm_kernel, resblock_kernel, rvq_kernel
@@ -74,6 +83,118 @@ def test_rvq_kernel_exact_tie_takes_lower_index(cuda):
     codes = rvq_kernel.rvq_encode(x, embed)
     assert bool((codes[0] == 70).all())
     assert torch.equal(codes, rvq_kernel.rvq_encode_reference(x, embed))
+
+
+@pytest.mark.parametrize('N', [1024, 1000, 7])
+@pytest.mark.parametrize('K', [1, 8, 32])
+@pytest.mark.parametrize('M', [1, 8, 64, 750])
+def test_rvq_kernel_cluster_shapes_match_plain(cuda, M, K, N):
+    """The cluster kernel at the serving path's and the codec's M: every rows
+    a tile from 1 to 32, a ragged last slice (N 1000: 125 bins a CTA) and
+    fewer bins than CTAs (N 7: the last CTA of the cluster owns none)."""
+    gen = torch.Generator(device=cuda).manual_seed(M * 100 + K * 10 + N)
+    D = 128
+    x = torch.randn(M, D, generator=gen, device=cuda)
+    scale = 0.7 ** torch.arange(K, device=cuda, dtype=torch.float32)
+    embed = (torch.randn(K, N, D, generator=gen, device=cuda) * scale[:, None, None]).contiguous()
+    esq = rvq_kernel.codebook_sq_norms(embed)
+    codes = rvq_kernel.rvq_encode(x, embed, esq)
+    plain = rvq_kernel.rvq_encode_reference(x, embed)
+    assert codes.shape == (K, M) and codes.dtype == torch.int32
+    assert bool((codes >= 0).all()) and bool((codes < N).all())
+    n_diff, not_tie = chip_smoke.rvq_first_differences(torch, x, embed, codes, plain)
+    assert not_tie == 0, (n_diff, not_tie)
+    assert torch.equal(codes, rvq_kernel.rvq_encode(x, embed))   # esq computed in the wrapper
+
+
+@pytest.mark.parametrize('N,first,second', [(1024, 127, 128), (1024, 900, 1023),
+                                             (1000, 124, 125), (1000, 880, 999)])
+def test_rvq_kernel_tie_across_cluster_ranks_takes_lower_index(cuda, N, first, second):
+    """An exact tie between the last bin of one CTA's slice and the first of
+    the next (N 1024: 128 bins a CTA; N 1000: 125), and one inside the last
+    slice: every CTA of the cluster must agree on the lower index."""
+    gen = torch.Generator(device=cuda).manual_seed(N + first)
+    embed = torch.randn(2, N, 128, generator=gen, device=cuda)
+    embed[0, second] = embed[0, first]
+    for M in (8, 64, 750):
+        x = embed[0, first].repeat(M, 1).contiguous()
+        codes = rvq_kernel.rvq_encode(x, embed)
+        assert bool((codes[0] == first).all()), (M, codes[0].unique())
+        assert torch.equal(codes, rvq_kernel.rvq_encode_reference(x, embed))
+
+
+def test_rvq_kernel_reads_strided_latents(cuda):
+    """The encoder's latents arrive as [B, T, D] transposed from [B, D, T]:
+    the kernel reads them in place and gives the codes of a contiguous copy."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    z = torch.randn(3, 128, 50, generator=gen, device=cuda)
+    embed = torch.randn(4, 1024, 128, generator=gen, device=cuda)
+    x = z.transpose(1, 2)
+    codes = rvq_kernel.rvq_encode(x, embed)
+    flat = rvq_kernel.rvq_encode(x.reshape(150, 128).contiguous(), embed)
+    assert codes.shape == (4, 3, 50) and torch.equal(codes.reshape(4, 150), flat)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` one float past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)[1:].view(t.shape)
+    assert out.data_ptr() % 16 != 0
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize('M', [64, 750])
+def test_rvq_kernel_plain_loads_match_plain(cuda, M):
+    """The codebook slices by plain loads instead of TMA: at D 130 (not a
+    multiple of 4) and with codebooks one float past a 16-byte boundary."""
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    for D, shift in ((130, False), (128, True)):
+        x = torch.randn(M, D, generator=gen, device=cuda)
+        embed = torch.randn(8, 1000, D, generator=gen, device=cuda)
+        if shift:
+            embed = _unaligned(embed)
+        codes = rvq_kernel.rvq_encode(x, embed)
+        plain = rvq_kernel.rvq_encode_reference(x, embed)
+        n_diff, not_tie = chip_smoke.rvq_first_differences(torch, x, embed, codes, plain)
+        assert not_tie == 0, (D, shift, n_diff, not_tie)
+        if shift:   # the same scores as the aligned copy's TMA path
+            assert torch.equal(codes, rvq_kernel.rvq_encode(x, embed.clone()))
+
+
+@pytest.mark.parametrize('first,second', [(63, 64), (447, 448), (1000, 1001)])
+def test_rvq_kernel_half_slice_buffers(cuda, first, second):
+    """Past 16 tiles a stage's slice of 128 bins goes through two 64-bin
+    buffers, the best carried from one to the next: codes match the plain
+    version at M 2048 and 12000, and an exact tie across the two buffers of
+    one CTA (bins 63/64, 447/448) or inside the second (1000/1001) takes the
+    lower index."""
+    assert rvq_kernel.launch_config(2048, 1024)['bins_per_buffer'] == 64
+    gen = torch.Generator(device=cuda).manual_seed(first)
+    embed = torch.randn(8, 1024, 128, generator=gen, device=cuda)
+    for M in (2048, 12000):
+        x = torch.randn(M, 128, generator=gen, device=cuda)
+        codes = rvq_kernel.rvq_encode(x, embed)
+        plain = rvq_kernel.rvq_encode_reference(x, embed)
+        n_diff, not_tie = chip_smoke.rvq_first_differences(torch, x, embed, codes, plain)
+        assert not_tie == 0, (M, n_diff, not_tie)
+    embed[0, second] = embed[0, first]
+    x = embed[0, first].repeat(2048, 1).contiguous()
+    codes = rvq_kernel.rvq_encode(x, embed)
+    assert bool((codes[0] == first).all()), codes[0].unique()
+    assert torch.equal(codes, rvq_kernel.rvq_encode_reference(x, embed))
+
+
+def test_kernel_launch_configs(cuda):
+    """K1 spreads small M over the card in clusters of 8, with a stage's whole
+    slice a buffer until the grid outgrows the card; K3 splits a tile's rows
+    over clusters of 2 / 2 / 4 / 8 / 8 CTAs at C 32 / 64 / 128 / 256 / 512 and
+    takes nothing wider."""
+    for M, rows, bins in ((12000, 64, 64), (750, 64, 128), (64, 8, 128), (8, 1, 128),
+                          (1, 1, 128)):
+        cfg = rvq_kernel.launch_config(M, 1024)
+        assert cfg == {'cluster': 8, 'rows_per_tile': rows, 'bins_per_buffer': bins}, (M, cfg)
+    for C, cl, tile in ((32, 2, 256), (64, 2, 128), (128, 4, 64), (256, 8, 32), (512, 8, 32),
+                        (1024, 0, 0)):
+        assert resblock_kernel.launch_config(C, C // 2) == {'cluster': cl, 'tile': tile}
 
 
 @pytest.mark.parametrize('T,B,H', [(50, 3, 100), (20, 2, 512), (5, 17, 33)])
@@ -184,7 +305,7 @@ def _resblock_weights(C, gen, device):
             u(C, C, 1, fan=C), u(C, fan=C) * 0.3)
 
 
-@pytest.mark.parametrize('C', [32, 64, 128, 256])
+@pytest.mark.parametrize('C', [32, 64, 128, 256, 512, 36])
 @pytest.mark.parametrize('d', [1, 2])
 def test_resblock_kernel_matches_plain(cuda, C, d):
     gen = torch.Generator(device=cuda).manual_seed(C + d)
@@ -205,7 +326,21 @@ def test_resblock_kernel_matches_plain(cuda, C, d):
         assert _rel_max(got, ref) <= 1e-5 and _rel_max(carry, ref_carry) <= 1e-6
 
 
-@pytest.mark.parametrize('C', [32, 256])
+@pytest.mark.parametrize('C,T', [(32, 1280), (64, 640), (128, 160), (256, 32)])
+def test_resblock_kernel_tick_shapes_match_plain(cuda, C, T):
+    """The mux tick's four encoder blocks (16 slots x 4 hops) with a halo."""
+    gen = torch.Generator(device=cuda).manual_seed(C + T)
+    w = _resblock_weights(C, gen, cuda)
+    x = torch.randn(16, C, T, generator=gen, device=cuda)
+    left = torch.randn(16, C, 2, generator=gen, device=cuda)
+    got, carry = resblock_kernel.resblock(x, *w, dilation=1, causal=True, left=left,
+                                          return_carry=True)
+    ref, ref_carry = resblock_kernel.resblock_reference(x, *w, dilation=1, causal=True,
+                                                        left=left, return_carry=True)
+    assert _rel_max(got, ref) <= 1e-5 and _rel_max(carry, ref_carry) <= 1e-6
+
+
+@pytest.mark.parametrize('C', [32, 64, 128, 256, 512, 36])
 def test_resblock_streamed_chunks_bit_equal_offline(cuda, C):
     gen = torch.Generator(device=cuda).manual_seed(7)
     w = _resblock_weights(C, gen, cuda)
@@ -218,6 +353,35 @@ def test_resblock_streamed_chunks_bit_equal_offline(cuda, C):
         outs.append(out)
         pos += n
     assert torch.equal(torch.cat(outs, -1), offline)
+
+
+def test_resblock_kernel_unaligned_inputs_match_plain(cuda):
+    """The input and the weights one float past a 16-byte boundary: the tile
+    by plain loads instead of cp.async, the weight chunks by plain loads
+    instead of TMA; the same bits as aligned copies."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = _resblock_weights(64, gen, cuda)
+    x = torch.randn(2, 64, 300, generator=gen, device=cuda)
+    kw = dict(dilation=1, causal=False, pad_mode='reflect')
+    got = resblock_kernel.resblock(_unaligned(x), *(_unaligned(t) for t in w), **kw)
+    assert _rel_max(got, resblock_kernel.resblock_reference(x, *w, **kw)) <= 1e-5
+    assert torch.equal(got, resblock_kernel.resblock(x, *w, **kw))
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_seanet_block_512_takes_the_kernel(cuda, causal):
+    """A SEANet block of 512 channels (n_filters 64) runs K3 on the card with
+    gradients off, like the narrower ones, and matches its conv sequence."""
+    block = SEANetResnetBlock(512, 'weight_norm', causal, 'reflect',
+                              torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.randn(2, 512, 500, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    launches = resblock_kernel.resblock.launches
+    with torch.no_grad():
+        got = block(x)
+        assert resblock_kernel.resblock.launches == launches + 1
+        ref = block.shortcut(x) + block.block(x)   # the conv sequence
+    assert _rel_max(got, ref) <= 1e-5
 
 
 def test_resblock_rejects_what_it_does_not_take(cuda):
@@ -243,8 +407,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(10, 8, device=cuda)
     with pytest.raises(TypeError):
         rvq_kernel.rvq_encode(x.double(), torch.randn(1, 4, 8, device=cuda).double())
-    with pytest.raises(ValueError):
-        rvq_kernel.rvq_encode(x.t(), torch.randn(1, 4, 10, device=cuda))
+    with pytest.raises(ValueError):     # D 8 against codebooks of D 10
+        rvq_kernel.rvq_encode(x, torch.randn(1, 4, 10, device=cuda))
+    with pytest.raises(ValueError, match='contiguous'):
+        rvq_kernel.rvq_encode(x, torch.randn(1, 8, 4, device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError, match='esq'):
+        rvq_kernel.rvq_encode(x, torch.randn(1, 4, 8, device=cuda), torch.zeros(1, 5, device=cuda))
     with pytest.raises(ValueError):
         lstm_kernel.lstm_recurrence(torch.randn(3, 2, 8, device=cuda),
                                     torch.randn(8, 3, device=cuda))
