@@ -80,12 +80,16 @@ to the CPU. Phases, in the order they run, each of which fails the run:
 10. K4 at the 48 kHz training config's shapes (B 32, 48000 stereo samples):
     conv_4's forward (K5 takes conv_1..conv_3's) and the input gradient of
     conv_1..conv_4, as phase 7 checks and times them.
-11. K5 (the discriminator's im2col conv) against its plain version (the im2col
-    GEMM in torch) and cuDNN's ``F.conv2d`` (TF32 off) at the 9 F-stride-2
-    conv shapes of one discriminator call at the 48 kHz training config
-    (B 32, 48000 stereo samples): within 1e-4 · max|ref| of both, and the
-    trainable route's dx and dW (K4's dx, cuDNN's dW) within 1e-4 of
-    ``F.conv2d``'s autograd; median times by CUDA events, the bound.
+11. K5 (the discriminator's im2col conv, 3xTF32 on the tensor cores) against
+    its plain version (the im2col GEMM in torch) and cuDNN's ``F.conv2d``
+    (TF32 off) at the 9 F-stride-2 conv shapes of one discriminator call at
+    the 48 kHz training config (B 32, 48000 stereo samples): within 1e-5 ·
+    max|ref| of both, bit-equal on a repeat, its weight packing bit-equal to
+    the plain packing, and the trainable route's dx and dW (K4's dx, cuDNN's
+    dW) within 1e-5 of ``F.conv2d``'s autograd. At each shape: median times
+    by CUDA events of the wrapper, the kernel alone, the packing, the plain
+    version, cuDNN and K4's forward (the in-house yardstick), the kernel's
+    device time from ``torch.profiler``, and two bounds (3xTF32, f32).
 12. The 48 kHz codec CLI (``-q``), in process, at full ``encodec_48khz`` width
     with seeded weights: a 10 s stereo wav to ``.ecdc`` and back at 6 kbps;
     header (``m encodec_48khz``, ``al 480000``, ``nc 4``), 11 frames each with
@@ -105,18 +109,17 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     kernel-vs-plain step at this config.
 
 With ``--before DIR`` (another checkout of the port, e.g. the parent commit
-unpacked with ``git archive``), phases 2 and 5 also run that checkout's K1
-and K3 on the same inputs: its time beside the kernel's, and whether the
-codes and outputs are bit-equal to it.
+unpacked with ``git archive``), phases 2, 5 and 11 also run that checkout's
+K1, K3 and K5 on the same inputs: its time beside the kernel's, and whether
+the codes and outputs are bit-equal to it (for K5, how far they differ).
 
 Output: one line per measurement (each phase's start with the seconds since
 the script started), then a JSON line with each kernel's numbers (launches:
 the 24 and 48 kHz codec CLIs' and servers' for K1, K2 and K3; both training
 paths' for K4; the 48 kHz training steps' for K5; K1's and K2's entries list
 every timed shape under ``shapes``, K3's its 8 offline and 4 tick shapes,
-K4's the totals of both configs), the
-``nvidia-smi`` name and
-power-limit line, and last ``{"ok": true, "device": {...}}``. Without a card,
+K4's the totals of both configs, K5's its 9 shapes), the ``nvidia-smi`` name
+and power-limit line, and last ``{"ok": true, "device": {...}}``. Without a card,
 or outside a checkout, it exits non-zero and prints no result.
 """
 
@@ -143,7 +146,7 @@ K1_NEAR_TIE_REL = 1e-5
 K2_TOL = 1e-4
 K3_TOL_REL = 1e-5
 K4_TOL_REL = 1e-5
-K5_TOL_REL = 1e-4
+K5_TOL_REL = 1e-5
 SNR_MIN_DB = 20.0
 TRAIN_LOSS_REL = 1e-3
 TRAIN_GRAD_REL = 1e-3
@@ -531,7 +534,7 @@ def load_before(path: Path):
     sys.modules['before_port'] = module
     spec.loader.exec_module(module)
     ops = importlib.import_module('before_port.ops')
-    for name in ('_build', 'rvq_kernel', 'resblock_kernel'):
+    for name in ('_build', 'rvq_kernel', 'resblock_kernel', 'disc_im2col_kernel'):
         importlib.import_module(f'before_port.ops.{name}')
     return ops
 
@@ -973,14 +976,17 @@ def k4_phase(torch, seed, config_name: str = 'config'):
     return fwd, dx
 
 
-def k5_phase(torch, seed):
+def k5_phase(torch, seed, before=None):
     """K5 against its plain version (the im2col GEMM) and cuDNN's ``F.conv2d``
     at the 9 F-stride-2 conv shapes of one discriminator call at the 48 kHz
-    training config, forward and the trainable route's dx and dW; returns the
-    summary over the 9 convs."""
+    training config, forward and the trainable route's dx and dW; beside it,
+    K4's forward and (with ``before``) the other checkout's K5 on the same
+    inputs. Returns the summary over the 9 convs, each shape under
+    ``shapes``."""
     import torch.nn.functional as F
 
     from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
     from encodec_pytorch_tpu_torch.ops import disc_im2col_kernel as k5
     from encodec_pytorch_tpu_torch.train.trainer import build_disc_from_config
 
@@ -1001,8 +1007,11 @@ def k5_phase(torch, seed):
         h.remove()
     check(len(calls) == 9, f'expected 9 F-stride-2 convs, found {len(calls)}')
     gen = torch.Generator(device='cuda').manual_seed(seed + 18)
-    tot = {k: 0.0 for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'gflop')}
+    keys = ('ms', 'device_ms', 'kernel_ms', 'packing_ms', 'plain_ms', 'library_ms', 'k4_ms',
+            'bound_ms', 'bound_f32_ms', 'gflop') + (('before_ms',) if before is not None else ())
+    tot = {k: 0.0 for k in keys}
     worst = worst_grad = 0.0
+    shapes = []
     for x, w, b, m in calls:
         geo = (m.dilation, m.padding)
         y = k5.disc_im2col_forward(x, w, b, *geo)
@@ -1013,6 +1022,10 @@ def k5_phase(torch, seed):
         e_plain = float((y - y_plain).abs().max())
         e_lib = float((y - y_lib).abs().max())
         del y_plain
+        same = bool(torch.equal(y, k5.disc_im2col_forward(x, w, b, *geo)))
+        wk = k5.pack_weight_cuda(w)
+        check(torch.equal(wk, k5.pack_weight(w)),
+              f'K5 weight packing disagrees with its plain version at x {tuple(x.shape)}')
         # the trainable route (K5, K4's dx, cuDNN's dW) against F.conv2d's autograd
         g = torch.randn(y.shape, generator=gen, device='cuda')
         xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -1021,29 +1034,57 @@ def k5_phase(torch, seed):
                                            dilation=m.dilation), (xr, wr), g)
         e_grad = [float((a - r).abs().max()) / float(r.abs().max()) for a, r in zip(got, ref)]
         del got, ref, xr, wr, g
-        ms = cuda_ms(torch, lambda: k5.disc_im2col_forward(x, w, b, *geo))
-        plain_ms = cuda_ms(torch, lambda: k5.disc_im2col_forward_plain(x, w, b, *geo), runs=5)
-        lib_ms = cuda_ms(torch, lambda: F.conv2d(x, w, b, stride=k5.STRIDE, padding=m.padding,
-                                                 dilation=m.dilation))
+        row = dict(x=list(x.shape), dilation=list(m.dilation))
+        row['ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward(x, w, b, *geo))
+        row['device_ms'] = device_ms(torch, lambda: k5.disc_im2col_forward(x, w, b, *geo),
+                                     'disc_im2col_kernel')
+        row['kernel_ms'] = cuda_ms(torch, lambda: k5.forward_packed(x, wk, b, *geo))
+        row['packing_ms'] = cuda_ms(torch, lambda: k5.pack_weight_cuda(w))
+        row['plain_ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward_plain(x, w, b, *geo),
+                                  runs=5)
+        row['library_ms'] = cuda_ms(torch, lambda: F.conv2d(
+            x, w, b, stride=k5.STRIDE, padding=m.padding, dilation=m.dilation))
+        row['k4_ms'] = cuda_ms(torch, lambda: dck.disc_conv_forward(x, w, b, k5.STRIDE, *geo))
         flops = 2.0 * y.numel() * w[0].numel()
-        b_ms, b_by = bound_ms(flops, 4.0 * (x.numel() + w.numel() + b.numel() + y.numel()))
-        log(f'K5 disc_im2col x {tuple(x.shape)} dilation {m.dilation}: max |d| vs plain '
-            f'{e_plain:.3e}, vs cuDNN {e_lib:.3e} ({max(e_plain, e_lib) / top:.2e} of max); '
-            f'autograd dx, dW vs cuDNN {e_grad[0]:.2e}, {e_grad[1]:.2e} of max; kernel '
-            f'{ms:.4f} ms, plain (im2col GEMM) {plain_ms:.4f} ms, cuDNN F.conv2d {lib_ms:.4f} ms, '
-            f'bound {b_ms:.4f} ms ({b_by}); {flops / 1e9:.2f} GFLOP')
-        check(max(e_plain, e_lib) <= K5_TOL_REL * top and max(e_grad) <= K5_TOL_REL,
-              f'K5 disagrees at x {tuple(x.shape)}: {e_plain}, {e_lib}, {e_grad}')
+        row['bound_ms'], row['bound_f32_ms'] = k4_bounds(
+            flops, 4.0 * (x.numel() + w.numel() + b.numel() + y.numel()))
+        row['gflop'] = flops / 1e9
+        row['rel_err'] = max(e_plain, e_lib) / top
+        line = (f'K5 disc_im2col x {tuple(x.shape)} dilation {m.dilation}, '
+                f'{row["gflop"]:.2f} GFLOP: max |d| vs plain {e_plain:.3e}, vs cuDNN '
+                f'{e_lib:.3e} ({row["rel_err"]:.2e} of max); bit-equal on a repeat: {same}; '
+                f'autograd dx, dW vs cuDNN {e_grad[0]:.2e}, {e_grad[1]:.2e} of max; wrapper '
+                f'{row["ms"]:.4f} ms (on the device {fmt_ms(row["device_ms"])}; kernel '
+                f'{row["kernel_ms"]:.4f} ms, weight packing {row["packing_ms"]:.4f} ms), plain '
+                f'(im2col GEMM) {row["plain_ms"]:.4f} ms, cuDNN F.conv2d '
+                f'{row["library_ms"]:.4f} ms, K4 forward {row["k4_ms"]:.4f} ms, bound '
+                f'{row["bound_ms"]:.4f} ms (3xTF32) / {row["bound_f32_ms"]:.4f} ms (f32)')
+        if before is not None:
+            bk5 = before.disc_im2col_kernel
+            y_before = bk5.disc_im2col_forward(x, w, b, *geo)
+            row['before_ms'] = cuda_ms(torch, lambda: bk5.disc_im2col_forward(x, w, b, *geo))
+            row['before_rel_d'] = float((y - y_before).abs().max()) / top
+            line += (f'; the earlier kernel {row["before_ms"]:.4f} ms, max |d| between the two '
+                     f'{row["before_rel_d"]:.2e} of max')
+            del y_before
+        log(line)
+        check(row['rel_err'] <= K5_TOL_REL and max(e_grad) <= K5_TOL_REL and same,
+              f'K5 disagrees at x {tuple(x.shape)}: {e_plain}, {e_lib}, {e_grad}, repeat {same}')
         worst = max(worst, e_plain, e_lib)
         worst_grad = max(worst_grad, *e_grad)
-        for k, v in zip(tot, (ms, plain_ms, lib_ms, b_ms, flops / 1e9)):
-            tot[k] += v
+        for k in keys:
+            tot[k] += row[k] if row[k] is not None else float('nan')
+        shapes.append(row)
         del y, y_lib
-    log(f'K5 over one discriminator call (9 convs, {tot["gflop"]:.1f} GFLOP): kernel '
-        f'{tot["ms"]:.3f} ms, plain {tot["plain_ms"]:.3f} ms, cuDNN {tot["library_ms"]:.3f} ms, '
-        f'bound {tot["bound_ms"]:.3f} ms; worst autograd error {worst_grad:.2e} of max')
-    return dict(max_abs_err=worst, ms=tot['ms'], plain_ms=tot['plain_ms'],
-                bound_ms=tot['bound_ms'], bound_by='operations', library_ms=tot['library_ms'])
+    log(f'K5 over one discriminator call (9 convs, {tot["gflop"]:.1f} GFLOP): wrapper '
+        f'{tot["ms"]:.3f} ms (on the device {fmt_ms(tot["device_ms"])}; kernel '
+        f'{tot["kernel_ms"]:.3f} ms, packing {tot["packing_ms"]:.3f} ms), plain '
+        f'{tot["plain_ms"]:.3f} ms, cuDNN {tot["library_ms"]:.3f} ms, K4 forward '
+        f'{tot["k4_ms"]:.3f} ms, bound {tot["bound_ms"]:.3f} ms (3xTF32) / '
+        f'{tot["bound_f32_ms"]:.3f} ms (f32); worst autograd error {worst_grad:.2e} of max'
+        + (f'; the earlier kernel {tot["before_ms"]:.3f} ms' if before is not None else ''))
+    return dict(max_abs_err=worst, **{k: v for k, v in tot.items() if k != 'gflop'},
+                bound_by='operations', shapes=shapes)
 
 
 def read_frames(model, data: bytes):
@@ -1373,7 +1414,7 @@ def run(seed: int, before_dir=None) -> int:
         summary['shapes'] = [dict(summary, config='config'), dict(at48, config='config_48k_stereo')]
         summary['max_abs_err'] = max(summary['max_abs_err'], at48['max_abs_err'])
     phase('K5')
-    k5 = k5_phase(torch, seed)
+    k5 = k5_phase(torch, seed, before)
     with tempfile.TemporaryDirectory() as tmp:
         phase('48 kHz codec CLI')
         cli48_launches = codec48_phase(torch, seed, Path(tmp))
@@ -1422,8 +1463,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--before', type=Path, default=None,
-                        help='another checkout of the port (e.g. the parent commit): the K1 '
-                             'and K3 phases also time its kernels and compare their bits')
+                        help='another checkout of the port (e.g. the parent commit): the K1, '
+                             'K3 and K5 phases also time its kernels and compare their outputs')
     args = parser.parse_args()
     try:
         return run(args.seed, args.before)

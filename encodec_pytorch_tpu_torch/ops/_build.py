@@ -121,6 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.encodec_disc_conv_pack_f32.argtypes = [p, p] + [i] * 7 + [p]
     lib.encodec_disc_im2col_fwd_f32.restype = i
     lib.encodec_disc_im2col_fwd_f32.argtypes = [p, p, p, p] + [i] * 10 + [p]
+    lib.encodec_disc_im2col_pack_f32.restype = i
+    lib.encodec_disc_im2col_pack_f32.argtypes = [p, p, p]
     lib.encodec_resblock_f32.restype = i
     lib.encodec_resblock_f32.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.encodec_resblock_config.restype = None

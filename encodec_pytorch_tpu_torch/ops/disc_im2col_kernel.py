@@ -23,6 +23,13 @@ key ``tpu.disc_im2col`` is set.
   ``torch.nn.grad.conv2d_weight`` for dW, the split K4's route uses. On the
   CPU the same function runs the plain versions.
 
+K5 runs on the tensor cores in 3xTF32, as K4 does: each operand is split
+into two TF32 parts (:func:`.disc_conv_kernel.split_tf32`) and each term is
+the sum of three TF32 products, within 1e-5 of the f32 conv's largest value.
+:func:`pack_weight` splits the weights and lays them out as the B images of
+the kernel's ``wgmma`` k-steps; on the card :func:`pack_weight_cuda` does the
+same in one launch, once a call.
+
 For a CUDA tensor the wrapper launches the kernel, or raises on a dtype,
 shape or stride it does not take; ``disc_im2col_forward.launches`` counts its
 launches. The TPU kernel's t-major phase split, 8-row blocks and 128-lane
@@ -43,7 +50,12 @@ STRIDE = (1, 2)
 CHANNELS = 32
 TAPS = (3, 9)
 T_DILATIONS = (1, 2, 4)
-CHUNK = 4   # input channels a chunk of the kernel's reduction (CC in the source)
+# the kernel's reduction (csrc/disc_im2col.cu): chunks of 4 input channels,
+# k-steps of those 4 channels at two taps (the 28th tap zero), and a k-step's
+# B image of 32 output channels x 8 k
+CHUNK = 4
+STEPS = -(-TAPS[0] * TAPS[1] // 2)
+B_IMAGE = CHANNELS * 8
 
 
 def eligible(in_channels: int, out_channels: int, kernel_size: Pair, stride: Pair,
@@ -74,10 +86,33 @@ def disc_im2col_forward_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[t
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """``[Cin / 4, KT, KF, 4, Cout]`` with ``[g, mt, mf, c, co] = w[co, 4g + c,
-    mt, mf]``: each chunk of the kernel's reduction is one contiguous block."""
+    """The kernel's weight operand, from ``w [32, 32, 3, 9]``: split by
+    :func:`.disc_conv_kernel.split_tf32` and laid out as ``[Cin / 4, STEPS,
+    2, B_IMAGE]``: chunk of 4 input channels, k-step, part (hi, lo), and the
+    k-step's B image in ``wgmma``'s K-major layout without swizzle, where
+    element ``(co, k)`` sits at ``(co // 8)·64 + (k // 4)·32 + (co % 8)·4 +
+    k % 4`` and is ``w[co, 4·chunk + k % 4, tap // 9, tap % 9]`` with ``tap =
+    2·step + k // 4`` (zero at tap 27)."""
     Cout, Cin, KT, KF = w.shape
-    return w.reshape(Cout, Cin // CHUNK, CHUNK, KT, KF).permute(1, 3, 4, 2, 0).contiguous()
+    taps = KT * KF
+    wt = F.pad(w.reshape(Cout, Cin, taps), (0, 2 * STEPS - taps))
+    # co-block, co % 8, chunk, c, step, tap of the pair
+    wt = wt.reshape(Cout // 8, 8, Cin // CHUNK, CHUNK, STEPS, 2)
+    wt = wt.permute(2, 4, 0, 5, 1, 3).reshape(Cin // CHUNK, STEPS, 1, B_IMAGE)
+    hi, lo = disc_conv_kernel.split_tf32(wt.contiguous())
+    return torch.cat([hi, lo], 2).contiguous()
+
+
+def pack_weight_cuda(w: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_weight` in one launch on the card, from ``w`` (contiguous
+    f32 on CUDA). The same bits as the plain version."""
+    out = torch.empty(CHANNELS // CHUNK, STEPS, 2, B_IMAGE, device=w.device,
+                      dtype=torch.float32)
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    rc = _build.load().encodec_disc_im2col_pack_f32(w.data_ptr(), out.data_ptr(),
+                                                    ctypes.c_void_p(stream))
+    _build.check(rc, 'disc_im2col weight-packing kernel')
+    return out
 
 
 def disc_im2col_forward(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -100,18 +135,29 @@ def disc_im2col_forward(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.T
     To, Fo = disc_conv_kernel.out_size(T, F_, KT, KF, STRIDE[1], dt, pt, pf)
     if To <= 0 or Fo <= 0:
         raise ValueError(f'disc_im2col_forward: empty output for x {tuple(x.shape)}')
-    wk = pack_weight(w)
-    y = torch.empty(B, Cout, To, Fo, device=x.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.load().encodec_disc_im2col_fwd_f32(
-        x.data_ptr(), wk.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), B, Cin, Cout, T, F_, KT, KF, dt, pt, pf, ctypes.c_void_p(stream))
-    _build.check(rc, 'disc_im2col forward kernel')
+    y = forward_packed(x, pack_weight_cuda(w), bias, dilation, padding)
     disc_im2col_forward.launches += 1
     return y
 
 
 disc_im2col_forward.launches = 0
+
+
+def forward_packed(x: torch.Tensor, wk: torch.Tensor, bias: Optional[torch.Tensor],
+                   dilation: Pair, padding: Pair) -> torch.Tensor:
+    """K5's launch alone, from weights already packed by
+    :func:`pack_weight_cuda`: what :func:`disc_im2col_forward` runs after its
+    checks and the packing. Not counted in ``launches``."""
+    B, Cin, T, F_ = x.shape
+    dt, pt, pf = dilation[0], padding[0], padding[1]
+    To, Fo = disc_conv_kernel.out_size(T, F_, *TAPS, STRIDE[1], dt, pt, pf)
+    y = torch.empty(B, CHANNELS, To, Fo, device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _build.load().encodec_disc_im2col_fwd_f32(
+        x.data_ptr(), wk.data_ptr(), bias.data_ptr() if bias is not None else None,
+        y.data_ptr(), B, Cin, CHANNELS, T, F_, *TAPS, dt, pt, pf, ctypes.c_void_p(stream))
+    _build.check(rc, 'disc_im2col forward kernel')
+    return y
 
 
 class _DiscIm2col(torch.autograd.Function):

@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's GAN training step on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_train_step.py [--seed N] [--steps 2] [--out DIR]
+    python3 scripts/profile_torch_train_step.py [--config NAME] [--seed N] [--steps 2] [--out DIR]
 
-Builds the port's trainer at the full width of
-``encodec_pytorch_tpu/configs/config.yaml`` (f32, batch 12 x 72000, the
-discriminator's eligible convs on kernel K4) on 36 synthetic 3 s clips, as
-``chip_smoke.py`` does, runs two warm-up steps (k-means init, cuDNN autotune),
-then traces ``--steps`` steps with ``torch.profiler`` (CPU and CUDA). Each
-step draws the full 24 kbps (n_q 32) and trains the discriminator, so the
-traced steps do the most work a step can do. It prints:
+Builds the port's trainer at the full width of a default set, as
+``chip_smoke.py`` does: ``--config config`` (the default;
+``encodec_pytorch_tpu/configs/config.yaml``: f32, batch 12 x 72000 mono, the
+discriminator's eligible convs on kernel K4, 36 synthetic 3 s clips) or
+``--config config_48k_stereo`` (batch 32 x 48000 stereo, the F-stride-2 convs'
+forward on kernel K5, 96 synthetic 1.25 s clips); runs two warm-up steps
+(k-means init, cuDNN autotune), then traces ``--steps`` steps with
+``torch.profiler`` (CPU and CUDA). Each step draws the config's largest n_q
+(24 kbps) and trains the discriminator, so the traced steps do the most work
+a step can do. It prints:
 
 - the wall time of each traced step (host clock, ending in a synchronize),
   the device's busy time (sum of kernel times) and its idle share;
 - device time by kernel, largest first;
+- the port's own kernels by name (K4, K5, their weight packing, K2's
+  forward): device time a step and share of the device's busy time;
 - for the ``record_function`` ranges that this script wraps around K4's
-  forward and dx wrappers, K2's forward and K2's backward (the plain
-  recurrence recomputed and differentiated): the device time of the
-  kernels inside each, and its extent on the device timeline (idle gaps
-  between launches included);
+  forward and dx wrappers, K5's forward wrapper, K2's forward and K2's
+  backward (the plain recurrence recomputed and differentiated): the device
+  time of the ATen kernels inside each (the port's kernels, launched through
+  ctypes, are not attributed to a range: they count above) and its extent on
+  the device timeline (idle gaps between launches included);
 - device time of the other kernels grouped by name: cuDNN convolutions,
   GEMMs, and the rest;
 
@@ -42,6 +48,8 @@ sys.path.insert(0, str(ROOT))
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--config', default='config', choices=('config', 'config_48k_stereo'),
+                        help="the port's default set to train at full width")
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--steps', type=int, default=2)
     parser.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
@@ -52,7 +60,8 @@ def main() -> int:
         return 2
     import chip_smoke
     from encodec_pytorch_tpu_torch.config import load_config
-    from encodec_pytorch_tpu_torch.ops import disc_conv_kernel, lstm, lstm_kernel
+    from encodec_pytorch_tpu_torch.ops import (disc_conv_kernel, disc_im2col_kernel, lstm,
+                                               lstm_kernel)
     from encodec_pytorch_tpu_torch.train.step import train_step
     from encodec_pytorch_tpu_torch.train.trainer import Trainer
 
@@ -71,19 +80,28 @@ def main() -> int:
     disc_conv_kernel.disc_conv_forward = labelled('K4 forward', disc_conv_kernel.disc_conv_forward)
     disc_conv_kernel.disc_conv_input_grad = labelled('K4 dx',
                                                      disc_conv_kernel.disc_conv_input_grad)
+    disc_im2col_kernel.disc_im2col_forward = labelled('K5 forward',
+                                                      disc_im2col_kernel.disc_im2col_forward)
     lstm_kernel.lstm_recurrence = labelled('K2 forward', lstm_kernel.lstm_recurrence)
     lstm._Recurrence.backward = staticmethod(labelled('K2 backward (plain recurrence)',
                                                       lstm._Recurrence.backward))
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(load_config(chip_smoke.train_overrides(Path(tmp), args.seed)), 'cuda')
-        batch = torch.from_numpy(chip_smoke.make_clip(args.seed + 9, 12, 3)).cuda()
+        overrides = chip_smoke.train_overrides(Path(tmp), args.seed, args.config)
+        trainer = Trainer(load_config(overrides, name=args.config), 'cuda')
+        config = trainer.config
+        sr, channels = int(config.model.sample_rate), int(config.model.channels)
+        batch = torch.from_numpy(chip_smoke.make_clip(
+            args.seed + 9, int(config.datasets.batch_size), trainer.tensor_cut / sr, sr,
+            channels)).cuda()
+        n_q = max(trainer.n_q_table)
+        print(f'{args.config}: batch {tuple(batch.shape)}, n_q {n_q}', flush=True)
 
         def step():
             t0 = time.perf_counter()
             train_step(trainer.model, trainer.disc, trainer.balancer, trainer.opt_g,
-                       trainer.opt_d, batch, n_q=32, train_disc=True, lr_g=3e-4, lr_d=3e-4,
-                       sample_rate=24000, generator=trainer.device_gen)
+                       trainer.opt_d, batch, n_q=n_q, train_disc=True, lr_g=3e-4, lr_d=3e-4,
+                       sample_rate=sr, generator=trainer.device_gen)
             torch.cuda.synchronize()
             return 1000 * (time.perf_counter() - t0)
 
@@ -104,6 +122,15 @@ def main() -> int:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:30]:
         print(f'  {e.self_device_time_total / 1e3 / args.steps:9.3f} ms  {e.count // args.steps:6d}x'
               f'  {e.key[:110]}')
+    own = {'K4 (disc_conv_kernel)': 'disc_conv_kernel',
+           'K5 (disc_im2col_kernel)': 'disc_im2col_kernel',
+           'weight packing of K4 and K5 (pack_weight_kernel)': 'pack_weight_kernel',
+           'K2 forward (lstm_recurrence_kernel)': 'lstm_recurrence_kernel'}
+    for label, name in own.items():
+        ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / args.steps
+        launches = sum(e.count for e in kernels if name in e.key) // args.steps
+        print(f'{label}: {ms:.3f} ms a step in {launches} launches ({ms / busy:.3f} of the '
+              f'busy time)')
     # a range shows twice: on the host (device_time_total = its kernels' time)
     # and on the device timeline (first kernel to last, idle gaps included)
     for label in ranges:
@@ -111,13 +138,12 @@ def main() -> int:
         span = [e for e in events if e.key == label and e.device_type == cuda]
         kern = host[0].device_time_total / 1e3 / args.steps if host else float('nan')
         extent = span[0].self_device_time_total / 1e3 / args.steps if span else float('nan')
-        print(f'range {label}: kernels {kern:.1f} ms a step, device-timeline extent '
+        print(f'range {label}: ATen kernels {kern:.1f} ms a step, device-timeline extent '
               f'{extent:.1f} ms a step')
     groups = collections.OrderedDict((k, 0.0) for k in ('cuDNN conv', 'GEMM', 'other'))
-    own = ('disc_conv_kernel', 'lstm_recurrence_kernel')
     for e in kernels:
         name = e.key.lower()
-        if any(s in name for s in own):
+        if any(s in name for s in own.values()):
             continue
         if any(s in name for s in ('conv', 'cudnn', 'xmma', 'implicit', 'wgrad', 'dgrad')):
             key = 'cuDNN conv'

@@ -32,9 +32,12 @@ weights (plain loads instead of cp.async and TMA); a SEANet block of 512
 channels runs K3. K1 likewise at D 130, with unaligned codebooks, and with a
 stage's slice in two buffers (M 2048 and 12000, ties across the buffers). The
 launch shapes (K1's cluster and rows a tile, K3's cluster and tile) are the
-documented ones. K5 (the discriminator's im2col conv) within
-1e-5 · max|ref| of its plain version and of ``F.conv2d`` at ragged tiles and
-every T dilation, its trainable route's three gradients likewise; a
+documented ones. K5 (the discriminator's im2col conv, 3xTF32 on the tensor
+cores) within 1e-5 · max|ref| of its plain version and of ``F.conv2d`` at
+ragged tiles and every T dilation (Fo 33 and 65, T not a multiple of the
+block's 16 rows, B 1 and 3), bit-equal across two calls, counting one launch
+a call, with its weight-packing kernel bit-equal to the plain packing; its
+trainable route's three gradients likewise; a
 ``time_group_norm`` model on the card never takes K3 and matches the CPU.
 """
 
@@ -536,6 +539,34 @@ def test_disc_im2col_kernel_matches_plain(cuda, B, T, F, dt):
     ref = torch.nn.functional.conv2d(x, w, b, (1, 2), (dt, 4), (dt, 1))
     assert y.shape == ref.shape and _rel_max(y, ref) <= 1e-5
     assert torch.equal(y, k5.disc_im2col_forward(x, w, b, *geo))
+
+
+@pytest.mark.parametrize('B', [1, 3])
+@pytest.mark.parametrize('Fo', [33, 65])
+@pytest.mark.parametrize('dt', [1, 2, 4])
+def test_disc_im2col_kernel_at_ragged_tiles(cuda, B, Fo, dt):
+    """K5 at Fo = 2^k + 1 (one column past the 32-column blocks), T 21 (a
+    block of 16 rows and a ragged one), every T dilation: within 1e-5 of max
+    of its plain version and of cuDNN, the same bits on a second call, one
+    launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * B + Fo + dt)
+    x = torch.randn(B, 32, 21, 2 * Fo - 1, generator=gen, device=cuda)
+    w = torch.randn(32, 32, 3, 9, generator=gen, device=cuda) / 30
+    b = torch.randn(32, generator=gen, device=cuda)
+    geo = ((dt, 1), (dt, 4))
+    launches = k5.disc_im2col_forward.launches
+    y = k5.disc_im2col_forward(x, w, b, *geo)
+    again = k5.disc_im2col_forward(x, w, b, *geo)
+    assert k5.disc_im2col_forward.launches == launches + 2
+    assert y.shape == (B, 32, 21, Fo) and torch.equal(y, again)
+    assert _rel_max(y, k5.disc_im2col_forward_plain(x, w, b, *geo)) <= 1e-5
+    assert _rel_max(y, torch.nn.functional.conv2d(x, w, b, (1, 2), (dt, 4), (dt, 1))) <= 1e-5
+
+
+def test_disc_im2col_weight_packing_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w = torch.randn(32, 32, 3, 9, generator=gen, device=cuda)
+    assert torch.equal(k5.pack_weight_cuda(w), k5.pack_weight(w))
 
 
 def test_disc_im2col_autograd_matches_plain(cuda):

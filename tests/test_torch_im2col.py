@@ -76,8 +76,12 @@ def test_eligible_and_weight_packing():
     w = torch.randn(32, 32, 3, 9, generator=torch.Generator().manual_seed(0))
     wk = k5.pack_weight(w)
     c = k5.CHUNK
-    assert wk.shape == (32 // c, 3, 9, c, 32)
-    assert torch.equal(wk[2, 1, 5, 3], w[:, 2 * c + 3, 1, 5])
+    assert wk.shape == (32 // c, 14, 2, 256)
+    # chunk 2, k-step 5 (taps 10 and 11): k 7 is channel 2c + 3 at tap 11 (mt 1,
+    # mf 2); output channel 13 sits at (13 // 8)·64 + 32 + (13 % 8)·4 + 3
+    hi, lo = dck.split_tf32(w[13, 2 * c + 3, 1, 2])
+    assert wk[2, 5, 0, 64 + 32 + 20 + 3] == hi and wk[2, 5, 1, 64 + 32 + 20 + 3] == lo
+    assert abs(float(hi + lo - w[13, 2 * c + 3, 1, 2])) <= 2 ** -22 * abs(float(hi))
 
 
 @pytest.mark.parametrize('disc_im2col', [False, True])
