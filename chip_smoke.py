@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's 24 kHz codec path, its streaming and serving path,
-LM entropy coding, its GAN training step, the trainer's state (checkpoints, resume after
-SIGTERM, the test loop, trained-checkpoint loading, weight-norm folding) and
-the 48 kHz stereo family (codec, CodecServer, training step) once on one
-NVIDIA GPU.
+LM entropy coding, its GAN training step (in f32, and in the default set's
+bf16 with K4 and K5 in their bf16 forms), the trainer's state (checkpoints,
+resume after SIGTERM, the test loop, trained-checkpoint loading, weight-norm
+folding), the 48 kHz stereo family (codec, CodecServer, training step),
+gradient accumulation and the non-finite step guard once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--before DIR]
 
@@ -35,6 +36,13 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    random weights written as a released-layout ``.th``: a 10 s, 24 kHz wav to
    ``.ecdc`` at 6 kbps and back to wav. The K1, K2 and K3 launch counters are
    set to 0 just before and must be > 0 just after.
+3b. The same seeded model built in bfloat16 (``encodec_model_24khz(...,
+   dtype=torch.bfloat16)``) on the 10 s clip at 6 kbps against f32: with the
+   checkpoint's codebooks (fitted to the model's own residuals) code agreement
+   by stage, the latent's relative error, each stage's residual, and decode
+   relative RMS < 0.15 and SNR; with random-normal codebooks (the recipe of
+   ``tests/test_bf16.py``) >= 95 % of codes equal and relative RMS < 0.15.
+   K1 and K2 launched, K3 not (bf16 blocks take the conv sequence).
 4. Checks of that output: header (nc 8, al 240000), length, finite values, the
    file's codes equal the in-process encode, the CLI's wav equals the decode.
    Then the same clip through the plain versions: >= 99 % identical codes and
@@ -88,18 +96,23 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    the TF32 tensor-core peak, and the operations at the f32 CUDA-core peak
    (each no less than the bytes' time).
 8. The training path through the port's ``train_cli``, in process, at the full
-   width of ``encodec_pytorch_tpu/configs/config.yaml`` in f32: 36 synthetic
+   width of ``encodec_pytorch_tpu/configs/config.yaml``, pinned to f32
+   (``tpu.compute_dtype=float32``; the set's default is bf16): 36 synthetic
    3 s wavs (one epoch = 3 steps of 12 x 72000) and 12 more as the test set
    (the trainer's first test loop), no LR warmup so the discriminator
    trains. K4's forward and dx counters and K2's are set to 0 just before
    and must be > 0 just after; losses finite; the generator, the
    discriminator and the codebooks changed. ms per step and peak memory.
+8b. The same in the default set's bf16, with no dtype override: K4's bf16
+   forward and dx counters set to 0 before and > 0 after; its step ms, device
+   busy, idle share (a profiled kernel step) and peak memory beside phase 8's.
 9. One more step from the trained state twice (at the largest n_q whose
    codebooks are initialized), once through the kernels and once with every
    kernel swapped for its plain version: losses within
    1e-3 relative, gradients within 1e-3 and updates within 1e-2 by relative
-   norm (a code flipped at an f32 near-tie moves them more than roundoff).
-10. Trainer state, at phase 8's full width and data with the overrides that
+   norm (a code flipped at an f32 near-tie moves them more than roundoff); in
+   bf16 2e-2, 5e-2 and 1e-1. The kernel step runs under ``torch.profiler``.
+10. Trainer state, at phase 8's full width and data (f32) with the overrides that
     give the ``my_encodec`` architecture (non-causal, ``time_group_norm``)
     and n_q 8 (so that ``encodec_bw`` at 6 kbps loads the same file):
     ``train_cli`` for 2 epochs of 3 steps, a test loop before and after
@@ -160,6 +173,31 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     counters > 0; finite losses; the generator, the discriminator and the
     codebooks changed; ms per step and peak memory; then phase 9's
     kernel-vs-plain step at this config.
+16. K4 in bf16 (``disc_conv_forward_bf16``, ``disc_conv_input_grad_bf16``:
+    ``mma.sync`` m16n8k16 bf16, f32 sums, bf16 out, the bias added after the
+    rounding) at the shapes of a bf16 discriminator call of both configs (24
+    kHz: the 12 eligible convs, forward and dx; 48 kHz: conv_4's 3 forwards
+    and the 12 dx): against the plain version >= 99 % bit-equal and the conv
+    before the bias within 1 bf16 ulp, or 1e-5 of max|ref| where the sum
+    nearly cancels; the bias added after the rounding bit-exactly; the weight
+    packing bit-equal to the plain one; the same bits on a repeat. Times by
+    CUDA events (wrapper, kernel alone) and device time, beside the plain
+    version, cuDNN in bf16 (``F.conv2d``, ``conv2d_input``), K4's f32 form and
+    the bound at the bf16 peak (989 TFLOP/s).
+17. K5 in bf16 (``disc_im2col_forward_bf16``: ``wgmma`` m64n32k16 bf16) at the
+    9 F-stride-2 convs of a bf16 48 kHz discriminator call, the same checks,
+    beside cuDNN in bf16, K4's bf16 forward (and whether they agree bit for
+    bit) and K5's f32 form.
+18. One full-width step of ``config_48k_stereo`` in bf16 (32 x 48000 stereo):
+    K5 and K4 in bf16 launched, peak memory, then kernels against plain from
+    the state after it (the bf16 bars of phase 9).
+19. Gradient accumulation: ``config_48k_stereo`` f32, one step's peak memory
+    at 2 microbatches against 1. The non-finite guard on the 24 kHz default
+    set (bf16, full width, Adam ``capturable``): a NaN batch leaves the whole
+    state bit-equal with ``skipped_nonfinite`` 1; the guard's
+    copy-and-select alone by CUDA events and its copies' size; guarded
+    against unguarded steps; 3 guarded steps under
+    ``torch.cuda.set_sync_debug_mode('error')`` (no host sync).
 
 With ``--before DIR`` (another checkout of the port, e.g. the parent commit
 unpacked with ``git archive``), phases 2, 5 and 12 also run that checkout's
@@ -173,7 +211,9 @@ K1, K2 and K3; both training paths' and phase 10's for K4; the 48 kHz training
 steps' for K5; the on-device LM route's at 24 and 48 kHz for K6, whose ``ms`` is
 a decode step's; K1's and K2's entries list
 every timed shape under ``shapes``, K3's its 8 offline and 4 tick shapes,
-K4's the totals of both configs, K5's its 9 shapes), the ``nvidia-smi`` name
+K4's the totals of both configs, K5's its 9 shapes; the bf16 forms of K4 and
+K5, launched on the bf16 training path and the 48 kHz bf16 step, their
+shapes), the ``nvidia-smi`` name
 and power-limit line, and last ``{"ok": true, "device": {...}}``. Without a card,
 or outside a checkout, it exits non-zero and prints no result.
 """
@@ -208,10 +248,24 @@ SNR_MIN_DB = 20.0
 TRAIN_LOSS_REL = 1e-3
 TRAIN_GRAD_REL = 1e-3
 TRAIN_UPDATE_REL = 1e-2
-# NVIDIA's data sheet, H100 SXM: f32 on CUDA cores, TF32 on the tensor cores
-# (dense), and HBM3
+# the kernel-vs-plain step in bf16: the bars of the port-vs-JAX bf16 step on
+# the CPU (losses, gradients), and twice the gradients' for the updates (f32:
+# 10x its gradients'; Adam's update moves with the gradient's error)
+TRAIN_BF16_LOSS_REL = 2e-2
+TRAIN_BF16_GRAD_REL = 5e-2
+TRAIN_BF16_UPDATE_REL = 1e-1
+# a bf16 kernel against its plain version: this share of the outputs
+# bit-equal, and each other one within 1 bf16 ulp or within the f32 rule's
+# 1e-5 of max|ref| (the f32 sums of two summation orders may differ by that
+# much, which is more than an ulp of a near-cancelling output)
+BF16_EQUAL_SHARE = 0.99
+BF16_CODES_SHARE = 0.95       # tests/test_bf16.py's gates for a bf16 codec
+BF16_DECODE_REL_RMS = 0.15
+# NVIDIA's data sheet, H100 SXM: f32 on CUDA cores, TF32 and bf16 on the
+# tensor cores (dense), and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -284,9 +338,10 @@ def fmt_ms(v) -> str:
     return 'not measured' if v is None else f'{v:.4f} ms'
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least ms the card could take, 'operations' or 'bytes')."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """(least ms the card could take at the ``peak`` operation rate or the
+    memory rate, 'operations' or 'bytes')."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes else 'bytes')
 
 
@@ -914,9 +969,9 @@ def train_overrides(tmp: Path, seed: int, config: str = 'config') -> list:
     """Three batches of synthetic clips in a CSV (``config``: 36 mono clips of
     3 s at 24 kHz; ``config_48k_stereo``: 96 stereo clips of 1.25 s at 48 kHz,
     cropped to 1 s), one batch more as the test set, and the overrides of the
-    port's default set ``config`` (at its full widths) that train one epoch
-    on them (after the test loop the trainer runs first), saving under
-    ``tmp``."""
+    port's default set ``config`` (at its full widths, in its own compute
+    dtype) that train one epoch on them (after the test loop the trainer runs
+    first), saving under ``tmp``."""
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.utils import write_wav
     sr, channels, seconds, offset = TRAIN_DATA[config]
@@ -955,24 +1010,11 @@ def k4_phase(torch, seed, config_name: str = 'config'):
     only. Returns the forward and dx summaries over the call."""
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
-    from encodec_pytorch_tpu_torch.train.trainer import build_disc_from_config
 
-    config = load_config(name=config_name)
-    disc = build_disc_from_config(config, 'cuda', torch.Generator().manual_seed(seed))
-    B, length = int(config.datasets.batch_size), int(config.datasets.tensor_cut)
-    sr, channels = int(config.model.sample_rate), int(config.model.channels)
-    calls = []
-
-    def record(module, args):
-        calls.append((args[0].detach(), module.conv.kernel().detach(),
-                      module.conv.bias.detach(), module, module.uses_kernel))
-
-    hooks = [m.register_forward_pre_hook(record) for m in disc.modules()
-             if getattr(m, 'uses_kernel', False) or getattr(m, 'uses_im2col', False)]
-    with torch.no_grad():
-        disc(torch.from_numpy(make_clip(seed + 7, B, length / sr, sr, channels)).cuda())
-    for h in hooks:
-        h.remove()
+    config = load_config(['tpu.compute_dtype=float32'], name=config_name)
+    calls = record_disc_convs(
+        torch, config, seed, seed + 7,
+        lambda m: getattr(m, 'uses_kernel', False) or getattr(m, 'uses_im2col', False))
     check(len(calls) == 12, f'expected 12 eligible convs, found {len(calls)}')
     gen = torch.Generator(device='cuda').manual_seed(seed + 8)
     keys = ('f_ms', 'f_lib', 'f_bound', 'f_bound32', 'f_kern', 'f_pack',
@@ -980,13 +1022,13 @@ def k4_phase(torch, seed, config_name: str = 'config'):
     tot = {k: 0.0 for k in keys}
     err_f = err_d = 0.0
     n_fwd = 0
-    for x, w, b, m, fwd in calls:
+    for x, w, b, m in calls:
         geo = (m.stride, m.dilation, m.padding)
         y_ref = dck.disc_conv_forward_reference(x, w, b, *geo)
         flops = 2.0 * y_ref.numel() * w.shape[1] * w.shape[2] * w.shape[3]
         line = f'K4 {config_name} x {tuple(x.shape)} w {tuple(w.shape)} stride {m.stride} ' \
                f'dilation {m.dilation}, {flops / 1e9:.2f} GFLOP:'
-        if fwd:
+        if m.uses_kernel:
             n_fwd += 1
             y = dck.disc_conv_forward(x, w, b, *geo)
             torch.cuda.synchronize()
@@ -1057,23 +1099,9 @@ def k5_phase(torch, seed, before=None):
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
     from encodec_pytorch_tpu_torch.ops import disc_im2col_kernel as k5
-    from encodec_pytorch_tpu_torch.train.trainer import build_disc_from_config
 
-    config = load_config(name='config_48k_stereo')
-    disc = build_disc_from_config(config, 'cuda', torch.Generator().manual_seed(seed))
-    B, length = int(config.datasets.batch_size), int(config.datasets.tensor_cut)
-    calls = []
-
-    def record(module, args):
-        calls.append((args[0].detach(), module.conv.kernel().detach(),
-                      module.conv.bias.detach(), module))
-
-    hooks = [m.register_forward_pre_hook(record) for m in disc.modules()
-             if getattr(m, 'uses_im2col', False)]
-    with torch.no_grad():
-        disc(torch.from_numpy(make_clip(seed + 17, B, length / SR48, SR48, 2)).cuda())
-    for h in hooks:
-        h.remove()
+    calls = record_disc_convs(torch, load_config(name='config_48k_stereo'), seed, seed + 17,
+                              lambda m: getattr(m, 'uses_im2col', False))
     check(len(calls) == 9, f'expected 9 F-stride-2 convs, found {len(calls)}')
     gen = torch.Generator(device='cuda').manual_seed(seed + 18)
     keys = ('ms', 'device_ms', 'kernel_ms', 'packing_ms', 'plain_ms', 'library_ms', 'k4_ms',
@@ -1324,9 +1352,21 @@ def _flat(module, grads: bool):
                       for p in module.parameters()])
 
 
-def training_phase(torch, seed, tmp: Path, config: str = 'config'):
-    """The training path of the default set ``config`` and its kernel-vs-plain
-    step: returns the kernels' launch counts on the training path."""
+def busy_ms(torch, prof, steps: int = 1) -> float:
+    """Device milliseconds a step in kernels, from a ``torch.profiler`` run
+    over ``steps`` steps."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / steps
+
+
+def training_phase(torch, seed, tmp: Path, config: str = 'config', extra=(), label=None,
+                   entries=None):
+    """The training path of the default set ``config`` (with ``extra``
+    overrides) and its kernel-vs-plain step, the latter profiled: returns the
+    launch counts of ``entries`` (K4's f32 entries and K2, and K5's under
+    ``config_48k_stereo``, by default) on the training path, and the step's
+    summary (ms after the first, device busy and idle share of the profiled
+    step, peak memory)."""
     import copy
 
     from encodec_pytorch_tpu_torch import train_cli
@@ -1337,13 +1377,15 @@ def training_phase(torch, seed, tmp: Path, config: str = 'config'):
     from encodec_pytorch_tpu_torch.train.trainer import (build_disc_from_config,
                                                          build_model_from_config)
 
+    label = label or config
     sr, channels, _, _ = TRAIN_DATA[config]
-    overrides = train_overrides(tmp, seed, config)
-    entries = {'disc_conv_forward': dck.disc_conv_forward,
-               'disc_conv_input_grad': dck.disc_conv_input_grad,
-               'lstm_recurrence': lstm_kernel.lstm_recurrence}
-    if config != 'config':
-        entries['disc_im2col_forward'] = k5.disc_im2col_forward
+    overrides = train_overrides(tmp, seed, config) + list(extra)
+    if entries is None:
+        entries = {'disc_conv_forward': dck.disc_conv_forward,
+                   'disc_conv_input_grad': dck.disc_conv_input_grad,
+                   'lstm_recurrence': lstm_kernel.lstm_recurrence}
+        if config != 'config':
+            entries['disc_im2col_forward'] = k5.disc_im2col_forward
     torch.cuda.reset_peak_memory_stats()
     for fn in entries.values():
         fn.launches = 0
@@ -1355,13 +1397,14 @@ def training_phase(torch, seed, tmp: Path, config: str = 'config'):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = trainer.history[-1]
     step_ms = summary['step_ms']
-    log(f'training {config}: train_cli, {summary["steps"]} steps of '
-        f'{trainer.config.datasets.batch_size} x {channels} x {trainer.tensor_cut} in '
+    dtype = trainer.model.encoder.dtype
+    log(f'training {label}: train_cli, {summary["steps"]} steps of '
+        f'{trainer.config.datasets.batch_size} x {channels} x {trainer.tensor_cut} in {dtype} in '
         f'{wall:.2f} s (set-up included); ms per step '
         f'{[round(t, 1) for t in step_ms]}, median after the first '
         f'{statistics.median(step_ms[1:]):.1f} ms; peak memory {peak_gb:.2f} GB; '
         f'kernel launches {launches}')
-    log(f'training {config}: epoch means ' + json.dumps(
+    log(f'training {label}: epoch means ' + json.dumps(
         {k: v for k, v in summary.items() if k not in ('step_ms', 'steps')}))
     check(summary['steps'] == 3, f'expected 3 steps, ran {summary["steps"]}')
     check(all(v > 0 for v in launches.values()),
@@ -1379,48 +1422,76 @@ def training_phase(torch, seed, tmp: Path, config: str = 'config'):
         'codebooks': float((trainer.model.quantizer.vq.embeds(trainer.model.quantizer.n_q)
                             - model0.quantizer.vq.embeds(model0.quantizer.n_q)).abs().max()),
     }
-    log(f'training {config}: max |change| of the parameters from their seeded init {moved}')
+    log(f'training {label}: max |change| of the parameters from their seeded init {moved}')
     check(all(v > 0 and np.isfinite(v) for v in moved.values()), f'not everything trained: {moved}')
 
     # the most stages whose k-means init already ran, so that both runs start
     # from the same codebooks
     inited = [bool(layer._codebook.inited) for layer in trainer.model.quantizer.vq.layers]
     n_q = max(n for n in trainer.n_q_table if all(inited[:n]))
-    log(f'training {config}: the kernel-vs-plain step runs at n_q {n_q}')
+    log(f'training {label}: the kernel-vs-plain step runs at n_q {n_q}')
+    batch = torch.from_numpy(make_clip(seed + 9, int(trainer.config.datasets.batch_size),
+                                       trainer.tensor_cut / sr, sr, channels)).cuda()
+    m_k, m_p, rel, prof_ms, prof = kernel_vs_plain_step(
+        torch, trainer.model, trainer.disc, trainer.balancer, trainer.opt_g, trainer.opt_d,
+        batch, n_q, sr, seed)
+    busy = busy_ms(torch, prof)
+    out = dict(step_ms=statistics.median(step_ms[1:]), busy_ms=busy, idle=1 - busy / prof_ms,
+               peak_gb=peak_gb, dtype=str(dtype))
+    log(f'training {label}: one step kernels vs plain from the trained state: loss relative '
+        f'diffs {rel["loss"]}; gradient relative norm diffs (generator, discriminator) '
+        f'{rel["grad"]}; update relative norm diffs {rel["update"]}; the kernel step under '
+        f'torch.profiler: wall {prof_ms:.1f} ms, device busy {busy:.1f} ms, idle share '
+        f'{out["idle"]:.3f}')
+    bars = ((TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_UPDATE_REL) if dtype == torch.float32
+            else (TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL, TRAIN_BF16_UPDATE_REL))
+    check(all(v <= bars[0] for v in rel['loss'].values())
+          and all(v <= bars[1] for v in rel['grad'])
+          and all(v <= bars[2] for v in rel['update']),
+          f'the kernel step disagrees with the plain step (bars {bars})')
+    return launches, out
+
+
+def kernel_vs_plain_step(torch, model0, disc0, balancer0, opt_g0, opt_d0, batch, n_q: int,
+                         sr: int, seed: int):
+    """One step from the given state twice, on copies: through the kernels
+    (under ``torch.profiler``) and with every kernel swapped for its plain
+    version. Returns (kernel metrics, plain metrics, relative differences of
+    the losses, the gradients and the updates, the profiled step's wall ms,
+    the profiler)."""
+    import copy
+
+    from encodec_pytorch_tpu_torch.train.step import make_optimizer, train_step
 
     def one_step(plain: bool):
-        model, disc = copy.deepcopy(trainer.model), copy.deepcopy(trainer.disc)
+        model, disc = copy.deepcopy(model0), copy.deepcopy(disc0)
         opt_g, opt_d = make_optimizer(model.parameters()), make_optimizer(disc.parameters())
         # deep copies: load_state_dict keeps the very state tensors it is given
-        opt_g.load_state_dict(copy.deepcopy(trainer.opt_g.state_dict()))
-        opt_d.load_state_dict(copy.deepcopy(trainer.opt_d.state_dict()))
-        batch = torch.from_numpy(make_clip(seed + 9, int(trainer.config.datasets.batch_size),
-                                           trainer.tensor_cut / sr, sr, channels)).cuda()
+        opt_g.load_state_dict(copy.deepcopy(opt_g0.state_dict()))
+        opt_d.load_state_dict(copy.deepcopy(opt_d0.state_dict()))
         before = _flat(model, False), _flat(disc, False)
-        with plain_path() if plain else contextlib.nullcontext():
-            metrics = train_step(model, disc, copy.deepcopy(trainer.balancer), opt_g, opt_d,
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with (plain_path() if plain else torch.profiler.profile(activities=acts)) as prof:
+            t0 = time.perf_counter()
+            metrics = train_step(model, disc, copy.deepcopy(balancer0), opt_g, opt_d,
                                  batch, n_q=n_q, train_disc=True, lr_g=3e-4, lr_d=3e-4,
                                  sample_rate=sr,
                                  generator=torch.Generator(device='cuda').manual_seed(seed))
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
         return ({k: float(v) for k, v in metrics.items()},
                 (_flat(model, True), _flat(disc, True)),
-                (_flat(model, False) - before[0], _flat(disc, False) - before[1]))
+                (_flat(model, False) - before[0], _flat(disc, False) - before[1]), wall, prof)
 
-    m_k, g_k, u_k = one_step(plain=False)
-    m_p, g_p, u_p = one_step(plain=True)
+    m_k, g_k, u_k, wall, prof = one_step(plain=False)
+    m_p, g_p, u_p, _, _ = one_step(plain=True)
     rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-    loss_rel = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-30)
-                for k in ('l_t', 'l_f', 'l_g', 'l_feat', 'loss_w', 'loss_disc')}
-    grad_rel = [rel(a, b) for a, b in zip(g_k, g_p)]
-    upd_rel = [rel(a, b) for a, b in zip(u_k, u_p)]
-    log(f'training {config}: one step kernels vs plain from the trained state: loss relative '
-        f'diffs {loss_rel}; gradient relative norm diffs (generator, discriminator) '
-        f'{grad_rel}; update relative norm diffs {upd_rel}')
-    check(all(v <= TRAIN_LOSS_REL for v in loss_rel.values())
-          and all(v <= TRAIN_GRAD_REL for v in grad_rel)
-          and all(v <= TRAIN_UPDATE_REL for v in upd_rel),
-          'the kernel step disagrees with the plain step')
-    return launches
+    diffs = {'loss': {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-30)
+                      for k in ('l_t', 'l_f', 'l_g', 'l_feat', 'loss_w', 'loss_disc')},
+             'grad': [rel(a, b) for a, b in zip(g_k, g_p)],
+             'update': [rel(a, b) for a, b in zip(u_k, u_p)]}
+    return m_k, m_p, diffs, wall, prof
 
 
 TRAIN_KERNELS = ('disc_conv_forward', 'disc_conv_input_grad')
@@ -1528,7 +1599,8 @@ def trainer_state_phase(torch, seed, tmp: Path, smi: str) -> dict:
     # loads the same file
     overrides = train_overrides(tmp, seed) + [
         f'common.max_epoch={STATE_EPOCHS}', 'common.save_interval=1', 'common.test_interval=1',
-        'model.causal=False', 'model.norm=time_group_norm', 'model.n_q=8']
+        'model.causal=False', 'model.norm=time_group_norm', 'model.n_q=8',
+        'tpu.compute_dtype=float32']
     in_tests = dict.fromkeys(entries, 0)
     real_test = trainer_module.Trainer.test
 
@@ -2093,6 +2165,499 @@ def lm48_phase(torch, seed, tmp: Path):
     return launches, err
 
 
+
+def bf16_ulps(torch, got, ref):
+    """Per element, |got - ref| in units of the bf16 spacing at the larger of
+    the two magnitudes (bf16 keeps 8 significant bits)."""
+    a, b = got.float(), ref.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_agreement(torch, got, ref) -> dict:
+    """A bf16 kernel's output against its plain version's: the share of
+    bit-equal elements, the largest difference in bf16 ulps, how many differ
+    by more than 1 ulp, how many of those also differ by more than 1e-5 of
+    max|ref| (the f32 sums' own spread; ``bad``), and max |d|."""
+    ulps = bf16_ulps(torch, got, ref)
+    d = (got.float() - ref.float()).abs()
+    top = float(ref.float().abs().max())
+    over = ulps > 1
+    return dict(equal=float((got.view(torch.int16) == ref.view(torch.int16)).float().mean()),
+                max_ulps=float(ulps.max()), over_1ulp=int(over.sum()),
+                bad=int((over & (d > K4_TOL_REL * top)).sum()), max_abs=float(d.max()),
+                top=top)
+
+
+def fmt_agree(a: dict) -> str:
+    return (f"bit-equal {a['equal']:.6f}, max {a['max_ulps']:.1f} ulps, {a['over_1ulp']} over "
+            f"1 ulp ({a['bad']} of them above 1e-5 of max), max |d| {a['max_abs']:.3e} of max "
+            f"{a['top']:.3e}")
+
+
+def bf16_ok(a: dict) -> bool:
+    return a['equal'] >= BF16_EQUAL_SHARE and a['bad'] == 0
+
+
+def record_disc_convs(torch, config, seed: int, clip_seed: int, want):
+    """The discriminator of ``config`` on a batch of its shape: the input, the
+    weight and the bias (in the compute dtype) and the module of every conv
+    for which ``want(module)`` holds, in call order."""
+    from encodec_pytorch_tpu_torch.train.trainer import build_disc_from_config
+    disc = build_disc_from_config(config, 'cuda', torch.Generator().manual_seed(seed))
+    B, length = int(config.datasets.batch_size), int(config.datasets.tensor_cut)
+    sr, channels = int(config.model.sample_rate), int(config.model.channels)
+    calls = []
+
+    def record(module, args):
+        d = module.dtype
+        calls.append((args[0].detach().to(d), module.conv.kernel().detach().to(d),
+                      module.conv.bias.detach().to(d), module))
+
+    hooks = [m.register_forward_pre_hook(record) for m in disc.modules() if want(m)]
+    with torch.no_grad():
+        disc(torch.from_numpy(make_clip(clip_seed, B, length / sr, sr, channels)).cuda())
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def k4_bf16_phase(torch, seed):
+    """K4's bf16 forward and dx against their plain versions, cuDNN in bf16
+    and K4's f32 form at the shapes of one bf16 discriminator call of each
+    config: 24 kHz (the default set, bf16): the 12 eligible convs, forward and
+    dx; 48 kHz (``tpu.compute_dtype=bfloat16``): conv_4's 3 forwards (K5
+    takes conv_1..3's) and the 12 convs' dx. Returns the forward's and the
+    dx's summaries over both calls."""
+    import torch.nn.functional as F
+
+    from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
+
+    keys = ('ms', 'device_ms', 'kernel_ms', 'plain_ms', 'library_ms', 'f32_ms', 'bound_ms',
+            'gflop')
+    tot = {p: {k: 0.0 for k in keys} for p in ('fwd', 'dx')}
+    worst = {'fwd': 0.0, 'dx': 0.0}
+    shapes = {'fwd': [], 'dx': []}
+    gen = torch.Generator(device='cuda').manual_seed(seed + 30)
+    for name, overrides in (('config', []), ('config_48k_stereo', ['tpu.compute_dtype=bfloat16'])):
+        config = load_config(overrides, name=name)
+        calls = record_disc_convs(
+            torch, config, seed, seed + 31,
+            lambda m: getattr(m, 'uses_kernel', False) or getattr(m, 'uses_im2col', False))
+        check(len(calls) == 12 and all(x.dtype == torch.bfloat16 for x, *_ in calls),
+              f'expected 12 eligible bf16 convs at {name}, found {len(calls)}')
+        for x, w, b, m in calls:
+            geo = (m.stride, m.dilation, m.padding)
+            K = w.shape[1] * w.shape[2] * w.shape[3]
+            y_ref = dck.disc_conv_forward_reference(x, w, b, *geo)
+            flops = 2.0 * y_ref.numel() * K
+            g = torch.randn(y_ref.shape, generator=gen, device='cuda').to(torch.bfloat16)
+            passes = (('fwd',) if m.uses_kernel else ()) + ('dx',)
+            for p in passes:
+                if p == 'fwd':
+                    run = lambda: dck.disc_conv_forward_bf16(x, w, b, *geo)
+                    got, ref = run(), y_ref
+                    # the conv alone, and the bias added after its rounding
+                    conv = dck.disc_conv_forward_bf16(x, w, None, *geo)
+                    agree = bf16_agreement(torch, conv,
+                                           dck.disc_conv_forward_reference(x, w, None, *geo))
+                    epilogue = bool(torch.equal(got, conv + b.reshape(1, -1, 1, 1)))
+                    wk = dck.pack_weight_cuda(w, m.stride[1], dx=False)
+                    packed = torch.equal(wk, dck.pack_weight_bf16(w.permute(1, 2, 3, 0)[None]))
+                    kern = lambda: dck.forward_packed(x, wk, b, w.shape, *geo)
+                    plain = lambda: dck.disc_conv_forward_reference(x, w, b, *geo)
+                    lib = lambda: F.conv2d(x, w, b, stride=m.stride, padding=m.padding,
+                                           dilation=m.dilation)
+                    x32, w32, b32 = x.float(), w.float(), b.float()
+                    f32 = lambda: dck.disc_conv_forward(x32, w32, b32, *geo)
+                    nbytes = 2.0 * (x.numel() + w.numel() + b.numel() + y_ref.numel())
+                else:
+                    run = lambda: dck.disc_conv_input_grad_bf16(g, w, x.shape, *geo)
+                    got = run()
+                    ref = dck.disc_conv_input_grad_reference(g, w, x.shape, *geo)
+                    agree, epilogue = bf16_agreement(torch, got, ref), True
+                    wk = dck.pack_weight_cuda(w, m.stride[1], dx=True)
+                    packed = torch.equal(wk, dck.pack_weight_bf16(dck.pack_dx_weight(w,
+                                                                                     m.stride[1])))
+                    kern = lambda: dck.input_grad_packed(g, wk, w.shape, x.shape, *geo)
+                    plain = lambda: dck.disc_conv_input_grad_reference(g, w, x.shape, *geo)
+                    lib = lambda: torch.nn.grad.conv2d_input(x.shape, w, g, stride=m.stride,
+                                                             padding=m.padding,
+                                                             dilation=m.dilation)
+                    g32, w32 = g.float(), w.float()
+                    f32 = lambda: dck.disc_conv_input_grad(g32, w32, x.shape, *geo)
+                    nbytes = 2.0 * (g.numel() + w.numel() + x.numel())
+                again = bool(torch.equal(got, run()))
+                whole = bf16_agreement(torch, got, ref)
+                row = dict(config=name, x=list(x.shape), dilation=list(m.dilation),
+                           stride=list(m.stride))
+                row['ms'] = cuda_ms(torch, run)
+                row['device_ms'] = device_ms(torch, run, 'disc_conv_bf16_kernel')
+                row['kernel_ms'] = cuda_ms(torch, kern)
+                row['plain_ms'] = cuda_ms(torch, plain)
+                row['library_ms'] = cuda_ms(torch, lib)
+                row['f32_ms'] = cuda_ms(torch, f32)
+                row['bound_ms'], _ = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+                row['gflop'] = flops / 1e9
+                row.update(equal=whole['equal'], conv_max_ulps=agree['max_ulps'],
+                           conv_over_1ulp=agree['over_1ulp'])
+                log(f'K4 bf16 {p} {name} x {tuple(x.shape)} w {tuple(w.shape)} stride '
+                    f'{m.stride} dilation {m.dilation}, {flops / 1e9:.2f} GFLOP: vs plain '
+                    f'{fmt_agree(whole)}; the conv{" before the bias" if p == "fwd" else ""} '
+                    f'{fmt_agree(agree)}; bias added after the rounding: {epilogue}; packing '
+                    f'= plain: {packed}; repeat bit-equal: {again}; wrapper {row["ms"]:.4f} ms '
+                    f'(on the device {fmt_ms(row["device_ms"])}; kernel {row["kernel_ms"]:.4f} '
+                    f'ms), plain {row["plain_ms"]:.4f} ms, cuDNN bf16 {row["library_ms"]:.4f} '
+                    f'ms, K4 f32 {row["f32_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms (bf16)')
+                check(bf16_ok(agree) and whole['equal'] >= BF16_EQUAL_SHARE and epilogue
+                      and packed and again,
+                      f'K4 bf16 {p} disagrees with its plain version at x {tuple(x.shape)}')
+                worst[p] = max(worst[p], whole['max_abs'])
+                for k in keys:
+                    tot[p][k] += row[k] if row[k] is not None else float('nan')
+                shapes[p].append(row)
+                del got, ref
+            del y_ref, g
+    out = []
+    for p in ('fwd', 'dx'):
+        t = tot[p]
+        log(f'K4 bf16 {p} over both discriminator calls ({len(shapes[p])} convs, '
+            f'{t["gflop"]:.1f} GFLOP): wrapper {t["ms"]:.3f} ms (on the device '
+            f'{fmt_ms(t["device_ms"])}; kernel {t["kernel_ms"]:.3f} ms), plain '
+            f'{t["plain_ms"]:.3f} ms, cuDNN bf16 {t["library_ms"]:.3f} ms, K4 f32 '
+            f'{t["f32_ms"]:.3f} ms, bound {t["bound_ms"]:.3f} ms')
+        out.append(dict(max_abs_err=worst[p], **{k: v for k, v in t.items() if k != 'gflop'},
+                        bound_by='operations', shapes=shapes[p]))
+    return out
+
+
+def k5_bf16_phase(torch, seed):
+    """K5's bf16 forward against its plain version (the im2col GEMM in f32 on
+    the bf16 operands), cuDNN in bf16, K4's bf16 forward and K5's f32 form at
+    the 9 F-stride-2 convs of one bf16 discriminator call at the 48 kHz
+    config. Returns the summary over the 9 convs."""
+    import torch.nn.functional as F
+
+    from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
+    from encodec_pytorch_tpu_torch.ops import disc_im2col_kernel as k5
+
+    config = load_config(['tpu.compute_dtype=bfloat16'], name='config_48k_stereo')
+    calls = record_disc_convs(torch, config, seed, seed + 32,
+                              lambda m: getattr(m, 'uses_im2col', False))
+    check(len(calls) == 9, f'expected 9 F-stride-2 convs, found {len(calls)}')
+    keys = ('ms', 'device_ms', 'kernel_ms', 'plain_ms', 'library_ms', 'k4_ms', 'f32_ms',
+            'bound_ms', 'gflop')
+    tot = {k: 0.0 for k in keys}
+    worst = 0.0
+    shapes = []
+    for x, w, b, m in calls:
+        geo = (m.dilation, m.padding)
+        run = lambda: k5.disc_im2col_forward_bf16(x, w, b, *geo)
+        y = run()
+        ref = k5.disc_im2col_forward_plain(x, w, b, *geo)
+        conv = k5.disc_im2col_forward_bf16(x, w, None, *geo)
+        agree = bf16_agreement(torch, conv, k5.disc_im2col_forward_plain(x, w, None, *geo))
+        whole = bf16_agreement(torch, y, ref)
+        epilogue = bool(torch.equal(y, conv + b.reshape(1, -1, 1, 1)))
+        k4 = dck.disc_conv_forward_bf16(x, w, b, k5.STRIDE, *geo)
+        same_k4 = bf16_agreement(torch, y, k4)
+        wk = k5.pack_weight_cuda(w)
+        packed = torch.equal(wk, k5.pack_weight_bf16(w))
+        again = bool(torch.equal(y, run()))
+        x32, w32, b32 = x.float(), w.float(), b.float()
+        row = dict(x=list(x.shape), dilation=list(m.dilation))
+        row['ms'] = cuda_ms(torch, run)
+        row['device_ms'] = device_ms(torch, run, 'disc_im2col_bf16_kernel')
+        row['kernel_ms'] = cuda_ms(torch, lambda: k5.forward_packed(x, wk, b, *geo))
+        row['plain_ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward_plain(x, w, b, *geo),
+                                  runs=5)
+        row['library_ms'] = cuda_ms(torch, lambda: F.conv2d(x, w, b, stride=k5.STRIDE,
+                                                            padding=m.padding,
+                                                            dilation=m.dilation))
+        row['k4_ms'] = cuda_ms(torch, lambda: dck.disc_conv_forward_bf16(x, w, b, k5.STRIDE,
+                                                                         *geo))
+        row['f32_ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward(x32, w32, b32, *geo))
+        flops = 2.0 * y.numel() * w[0].numel()
+        row['bound_ms'], _ = bound_ms(
+            flops, 2.0 * (x.numel() + w.numel() + b.numel() + y.numel()), PEAK_BF16_FLOPS)
+        row['gflop'] = flops / 1e9
+        row.update(equal=whole['equal'], conv_max_ulps=agree['max_ulps'],
+                   conv_over_1ulp=agree['over_1ulp'], equal_k4=same_k4['equal'])
+        log(f'K5 bf16 x {tuple(x.shape)} dilation {m.dilation}, {row["gflop"]:.2f} GFLOP: vs '
+            f'plain {fmt_agree(whole)}; the conv before the bias {fmt_agree(agree)}; bias added '
+            f'after the rounding: {epilogue}; vs K4 bf16 bit-equal {same_k4["equal"]:.6f}; '
+            f'packing = plain: {packed}; repeat bit-equal: {again}; wrapper {row["ms"]:.4f} ms '
+            f'(on the device {fmt_ms(row["device_ms"])}; kernel {row["kernel_ms"]:.4f} ms), '
+            f'plain {row["plain_ms"]:.4f} ms, cuDNN bf16 {row["library_ms"]:.4f} ms, K4 bf16 '
+            f'{row["k4_ms"]:.4f} ms, K5 f32 {row["f32_ms"]:.4f} ms, bound '
+            f'{row["bound_ms"]:.4f} ms (bf16)')
+        check(bf16_ok(agree) and whole['equal'] >= BF16_EQUAL_SHARE and epilogue and packed
+              and again, f'K5 bf16 disagrees with its plain version at x {tuple(x.shape)}')
+        worst = max(worst, whole['max_abs'])
+        for k in keys:
+            tot[k] += row[k] if row[k] is not None else float('nan')
+        shapes.append(row)
+        del y, ref, conv, k4
+    log(f'K5 bf16 over one 48 kHz bf16 discriminator call (9 convs, {tot["gflop"]:.1f} GFLOP): '
+        f'wrapper {tot["ms"]:.3f} ms (on the device {fmt_ms(tot["device_ms"])}; kernel '
+        f'{tot["kernel_ms"]:.3f} ms), plain {tot["plain_ms"]:.3f} ms, cuDNN bf16 '
+        f'{tot["library_ms"]:.3f} ms, K4 bf16 forward {tot["k4_ms"]:.3f} ms, K5 f32 '
+        f'{tot["f32_ms"]:.3f} ms, bound {tot["bound_ms"]:.3f} ms')
+    return dict(max_abs_err=worst, **{k: v for k, v in tot.items() if k != 'gflop'},
+                bound_by='operations', shapes=shapes)
+
+
+BF16_ENTRIES = ('disc_conv_forward_bf16', 'disc_conv_input_grad_bf16', 'disc_im2col_forward_bf16')
+
+
+def _bf16_entries():
+    from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
+    from encodec_pytorch_tpu_torch.ops import disc_im2col_kernel as k5
+    return {'disc_conv_forward_bf16': dck.disc_conv_forward_bf16,
+            'disc_conv_input_grad_bf16': dck.disc_conv_input_grad_bf16,
+            'disc_im2col_forward_bf16': k5.disc_im2col_forward_bf16}
+
+
+def _model_and_disc(torch, config, seed: int, capturable: bool = False):
+    """The generator, the discriminator, Adam for each and a balancer of
+    ``config`` at full width on the card, from ``seed``."""
+    from encodec_pytorch_tpu_torch.train.balancer import Balancer
+    from encodec_pytorch_tpu_torch.train.step import make_optimizer
+    from encodec_pytorch_tpu_torch.train.trainer import (build_disc_from_config,
+                                                         build_model_from_config)
+    init = torch.Generator().manual_seed(seed)
+    model = build_model_from_config(config, 'cuda', init).train()
+    disc = build_disc_from_config(config, 'cuda', init).train()
+    return (model, disc, make_optimizer(model.parameters(), capturable),
+            make_optimizer(disc.parameters(), capturable),
+            Balancer(config.balancer.weights.to_dict()))
+
+
+def step48_bf16_phase(torch, seed) -> dict:
+    """One full-width step of ``config_48k_stereo`` in bf16 (32 x 48000
+    stereo): K5 and K4 in bf16, the peak memory; then kernels against plain
+    from the state after it. Returns the bf16 kernels' launches in the
+    first step."""
+    from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.train.step import train_step
+
+    config = load_config(['tpu.compute_dtype=bfloat16'], name='config_48k_stereo')
+    model, disc, opt_g, opt_d, balancer = _model_and_disc(torch, config, seed)
+    sr, B, length = SR48, int(config.datasets.batch_size), int(config.datasets.tensor_cut)
+    batch = torch.from_numpy(make_clip(seed + 33, B, length / sr, sr, 2)).cuda()
+    n_q = max(model.n_q_for_bandwidth_index())
+    entries = _bf16_entries()
+    for fn in entries.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = train_step(model, disc, balancer, opt_g, opt_d, batch, n_q=n_q, train_disc=True,
+                         lr_g=3e-4, lr_d=3e-4, sample_rate=sr,
+                         generator=torch.Generator(device='cuda').manual_seed(seed))
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: fn.launches for k, fn in entries.items()}
+    log(f'48 kHz bf16 step: 32 x 2 x 48000, n_q {n_q}, {wall:.1f} ms (the first step: k-means '
+        f'init), peak memory {peak:.2f} GB, bf16 kernel launches {launches}, losses '
+        + json.dumps({k: round(float(metrics[k]), 6) for k in ('l_t', 'l_f', 'l_g', 'l_feat',
+                                                               'loss_w', 'loss_disc')}))
+    check(launches['disc_im2col_forward_bf16'] > 0 and launches['disc_conv_forward_bf16'] > 0
+          and launches['disc_conv_input_grad_bf16'] > 0,
+          f'the 48 kHz bf16 step did not launch K5 and K4 in bf16: {launches}')
+    check(all(np.isfinite(float(v)) for v in metrics.values()), 'non-finite 48 kHz bf16 step')
+    _, _, rel, prof_ms, prof = kernel_vs_plain_step(torch, model, disc, balancer, opt_g, opt_d,
+                                                    batch, n_q, sr, seed + 1)
+    busy = busy_ms(torch, prof)
+    log(f'48 kHz bf16 step: kernels vs plain from the state after it: loss relative diffs '
+        f'{rel["loss"]}; gradient relative norm diffs {rel["grad"]}; update relative norm '
+        f'diffs {rel["update"]}; the kernel step under torch.profiler: wall {prof_ms:.1f} ms, '
+        f'device busy {busy:.1f} ms, idle share {1 - busy / prof_ms:.3f}')
+    check(all(v <= TRAIN_BF16_LOSS_REL for v in rel['loss'].values())
+          and all(v <= TRAIN_BF16_GRAD_REL for v in rel['grad'])
+          and all(v <= TRAIN_BF16_UPDATE_REL for v in rel['update']),
+          'the 48 kHz bf16 kernel step disagrees with the plain step')
+    return launches
+
+
+def _state_tensors(model, disc, opts, balancer):
+    """Every tensor of the training state, cloned, in a fixed order."""
+    out = [t.detach().clone() for m in (model, disc) for t in m.state_dict().values()]
+    for opt in opts:
+        for p in opt.param_groups[0]['params']:
+            out += [v.detach().clone() for _, v in sorted(opt.state[p].items())]
+    out += [balancer.total[k].clone() for k in sorted(balancer.total)]
+    out += [balancer.fix[k].clone() for k in sorted(balancer.fix)]
+    return out
+
+
+def accum_guard_phase(torch, seed) -> None:
+    """Gradient accumulation at 48 kHz (f32, ``tpu.grad_accum_steps=2``):
+    one step's peak memory against one microbatch; then the non-finite guard
+    on the 24 kHz default set (bf16) at full width: a NaN batch leaves the
+    state bit-equal with ``skipped_nonfinite`` 1, a clean one trains with 0,
+    the guard's own cost, and guarded steps under
+    ``torch.cuda.set_sync_debug_mode('error')``."""
+    from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.train.step import NonFiniteGuard, train_step
+
+    config = load_config(name='config_48k_stereo')
+    model, disc, opt_g, opt_d, balancer = _model_and_disc(torch, config, seed)
+    sr, B, length = SR48, int(config.datasets.batch_size), int(config.datasets.tensor_cut)
+    batch = torch.from_numpy(make_clip(seed + 34, B, length / sr, sr, 2)).cuda()
+    n_q = max(model.n_q_for_bandwidth_index())
+    step = lambda accum: train_step(model, disc, balancer, opt_g, opt_d, batch, n_q=n_q,
+                                    train_disc=True, lr_g=3e-4, lr_d=3e-4, sample_rate=sr,
+                                    generator=torch.Generator(device='cuda').manual_seed(seed),
+                                    grad_accum_steps=accum)
+    step(1)                                       # k-means init, outside the measurement
+    peaks, walls = {}, {}
+    for accum in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = step(accum)
+        torch.cuda.synchronize()
+        walls[accum] = 1e3 * (time.perf_counter() - t0)
+        peaks[accum] = torch.cuda.max_memory_allocated() / 1e9
+        check(all(np.isfinite(float(v)) for v in metrics.values()),
+              f'non-finite 48 kHz step at accumulation {accum}')
+    log(f'accumulation: config_48k_stereo f32, 32 x 2 x 48000, n_q {n_q}: peak memory '
+        f'{peaks[1]:.2f} GB at 1 microbatch, {peaks[2]:.2f} GB at 2 of 16; step '
+        f'{walls[1]:.1f} / {walls[2]:.1f} ms')
+    check(peaks[2] < peaks[1], 'accumulation did not lower the peak memory')
+    del model, disc, opt_g, opt_d, balancer, batch
+
+    config = load_config(['tpu.skip_nonfinite_steps=true'])
+    model, disc, opt_g, opt_d, balancer = _model_and_disc(torch, config, seed, capturable=True)
+    sr, B, length = SR, int(config.datasets.batch_size), int(config.datasets.tensor_cut)
+    clean = [torch.from_numpy(make_clip(seed + 35 + i, B, length / sr, sr)).cuda()
+             for i in range(3)]
+    bad = torch.full_like(clean[0], float('nan'))
+    n_q = max(model.n_q_for_bandwidth_index())
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def guarded(x):
+        return train_step(model, disc, balancer, opt_g, opt_d, x, n_q=n_q, train_disc=True,
+                          lr_g=3e-4, lr_d=3e-4, sample_rate=sr, generator=gen,
+                          skip_nonfinite=True)
+
+    for x in clean[:2]:       # k-means init; the stages' flags are then known on the host
+        guarded(x)
+    before = _state_tensors(model, disc, (opt_g, opt_d), balancer)
+    metrics = guarded(bad)
+    after = _state_tensors(model, disc, (opt_g, opt_d), balancer)
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    skipped = float(metrics['skipped_nonfinite'])
+    log(f'guard: 24 kHz {model.encoder.dtype} step at full width on a NaN batch: '
+        f'skipped_nonfinite {skipped}, the state ({len(before)} tensors) bit-equal: {same}')
+    check(skipped == 1.0 and same, 'the guard did not drop the NaN step')
+    # the guard's own cost: its copy before a step, its check and selects after
+    metrics = guarded(clean[2])
+    check(float(metrics['skipped_nonfinite']) == 0.0, 'the guard dropped a clean step')
+
+    device = torch.device('cuda')
+
+    def guard_alone():
+        NonFiniteGuard(model, disc, balancer, opt_g, opt_d, device).apply(dict(metrics))
+
+    guard_ms = cuda_ms(torch, guard_alone, runs=10)
+    g = NonFiniteGuard(model, disc, balancer, opt_g, opt_d, device)
+    copy_gb = sum(t.numel() * t.element_size() for t in g.saved) / 1e9
+    del g
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in clean:
+        guarded(x)
+    torch.cuda.synchronize()
+    with_guard = 1e3 * (time.perf_counter() - t0) / len(clean)
+    t0 = time.perf_counter()
+    for x in clean:
+        train_step(model, disc, balancer, opt_g, opt_d, x, n_q=n_q, train_disc=True, lr_g=3e-4,
+                   lr_d=3e-4, sample_rate=sr, generator=gen)
+    torch.cuda.synchronize()
+    without = 1e3 * (time.perf_counter() - t0) / len(clean)
+    with no_host_sync(torch):
+        for x in clean:
+            metrics = guarded(x)
+    log(f'guard: copy and check-and-select alone {guard_ms:.3f} ms a step by CUDA events, '
+        f'{copy_gb:.3f} GB of copies; steps {with_guard:.1f} ms guarded, {without:.1f} ms '
+        f'unguarded (host clock, 3 each); {len(clean)} guarded steps ran under '
+        f'set_sync_debug_mode("error") with no host sync; skipped_nonfinite '
+        f'{float(metrics["skipped_nonfinite"])}')
+
+
+def bf16_codec_phase(torch, seed, ckpt: Path) -> dict:
+    """The seeded ``encodec_24khz`` built with ``dtype=bfloat16`` on the 10 s
+    clip at 6 kbps against the same weights in f32, with two sets of
+    codebooks: the checkpoint's, fitted to the model's own residuals (code
+    agreement by stage, the latent's relative error and each stage's residual
+    beside it, decode relative RMS and SNR), and random-normal ones, the
+    recipe of ``tests/test_bf16.py:52-83``, whose gate (>= 95 % of codes) they
+    are held to. Fitted codebooks put codewords at near-equal distances, where
+    the latent's bf16 rounding flips the choice; the JAX package's bf16
+    pipeline flips as many (``tests/test_torch_bf16.py``), so they are held
+    to the decode gate only. K1 and K2 run, K3 does not (bf16 blocks take the
+    conv sequence). Returns the launch counts of the bf16 runs."""
+    from encodec_pytorch_tpu_torch.models.model import encodec_model_24khz
+    clip = torch.from_numpy(make_clip(seed + 3, batch=1)).cuda()
+    models = {d: encodec_model_24khz(checkpoint=ckpt, device='cuda', dtype=d)
+              for d in (torch.float32, torch.bfloat16)}
+    launches = dict.fromkeys(CODEC_KERNELS, 0)
+
+    def run_both():
+        out = {}
+        for dtype, model in models.items():
+            model.set_target_bandwidth(6.)
+            reset_counts()
+            frames = model.encode(clip)
+            wav = model.decode(frames)[:, :, :clip.shape[-1]]
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                for k, v in read_counts().items():
+                    launches[k] += v
+            out[dtype] = (frames[0][0], wav.float().cpu().numpy())
+        (c32, w32), (c16, w16) = out[torch.float32], out[torch.bfloat16]
+        by_stage = [round(float((c32[:, k] == c16[:, k]).float().mean()), 4)
+                    for k in range(c32.shape[1])]
+        rel_rms = float(np.sqrt(np.mean((w32 - w16) ** 2)) / np.sqrt(np.mean(w32 ** 2)))
+        return float((c32 == c16).float().mean()), by_stage, rel_rms, snr_db(w32, w16), c32
+
+    agree, by_stage, rel_rms, snr, c32 = run_both()
+    with torch.no_grad():
+        z32, z16 = (m.encoder(clip) for m in models.values())
+    embed = models[torch.float32].quantizer.vq.embeds(c32.shape[1])
+    residual, res_rel = z32.transpose(1, 2), []
+    for k in range(c32.shape[1]):
+        res_rel.append(round(float(residual.norm() / z32.norm()), 4))
+        residual = residual - embed[k][c32[:, k].long()]
+    log(f'bf16 codec: encodec_24khz seeded, 10 s at 6 kbps, dtype bfloat16 against float32, '
+        f'the checkpoint\'s fitted codebooks: codes equal {agree:.6f} (by stage {by_stage}); '
+        f'the latent\'s relative error {float((z16 - z32).norm() / z32.norm()):.2e}, each '
+        f'stage\'s residual relative to the latent {res_rel}; decode relative RMS '
+        f'{rel_rms:.4f} (SNR {snr:.2f} dB)')
+    check(rel_rms < BF16_DECODE_REL_RMS, 'the bf16 codec decodes beyond the gate of '
+          'tests/test_bf16.py')
+    gen = torch.Generator(device='cuda').manual_seed(seed + 4)
+    with torch.no_grad():
+        for k, layer in enumerate(models[torch.float32].quantizer.vq.layers):
+            embed = torch.randn(layer._codebook.embed.shape, generator=gen, device='cuda')
+            for m in models.values():
+                m.quantizer.vq.layers[k]._codebook.embed.copy_(embed)
+    agree, by_stage, rel_rms, snr, _ = run_both()
+    log(f'bf16 codec: the same with random-normal codebooks (tests/test_bf16.py): codes equal '
+        f'{agree:.6f} (by stage {by_stage}); decode relative RMS {rel_rms:.4f} (SNR '
+        f'{snr:.2f} dB); launches in the bf16 runs {launches}')
+    check(agree >= BF16_CODES_SHARE and rel_rms < BF16_DECODE_REL_RMS,
+          'the bf16 codec drifts from f32 beyond the gates of tests/test_bf16.py')
+    check(launches['rvq_encode'] > 0 and launches['lstm_recurrence'] > 0
+          and launches['resblock'] == 0, f'bf16 codec launches {launches}')
+    return launches
+
+
 def run(seed: int, before_dir=None) -> int:
     try:
         import torch
@@ -2113,8 +2678,10 @@ def run(seed: int, before_dir=None) -> int:
     log(f'device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f'tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, '
-        f'cudnn {torch.backends.cudnn.allow_tf32}')
+        f'cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction in cuBLAS '
+        f'{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}')
 
     _build.load()
     log(f'build: {_build.BuildInfo.seconds:.2f} s (nvcc ran: {_build.BuildInfo.compiled}) '
@@ -2137,6 +2704,10 @@ def run(seed: int, before_dir=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase('codec CLI')
         cli_launches = main_path_phase(torch, seed, Path(tmp))
+        phase('bf16 codec')
+        codec16_launches = bf16_codec_phase(torch, seed, Path(tmp) / CKPT)
+        for k in CODEC_KERNELS:
+            cli_launches[k] += codec16_launches[k]
         phase('K3')
         k3 = k3_phase(torch, seed, Path(tmp) / CKPT, before)
         phase('serving')
@@ -2148,7 +2719,19 @@ def run(seed: int, before_dir=None) -> int:
     k4_fwd, k4_dx = k4_phase(torch, seed)
     with tempfile.TemporaryDirectory() as tmp:
         phase('training')
-        train_launches = training_phase(torch, seed, Path(tmp))
+        train_launches, train32 = training_phase(torch, seed, Path(tmp),
+                                                 extra=['tpu.compute_dtype=float32'],
+                                                 label='config (float32)')
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('training bf16')
+        bf16_entries = _bf16_entries()
+        bf16_launches, train16 = training_phase(
+            torch, seed, Path(tmp), label='config (the default, bfloat16)',
+            entries={k: bf16_entries[k] for k in BF16_ENTRIES[:2]})
+    log('training config, bfloat16 against float32 (one run, each a train_cli epoch of 3 steps '
+        'and one profiled step): ' + ', '.join(
+            f'{k} {train16[k]:.3f} vs {train32[k]:.3f}'
+            for k in ('step_ms', 'busy_ms', 'idle', 'peak_gb')))
     with tempfile.TemporaryDirectory() as tmp:
         phase('trainer state')
         state_launches = trainer_state_phase(torch, seed, Path(tmp), smi)
@@ -2175,7 +2758,18 @@ def run(seed: int, before_dir=None) -> int:
         launches[k] += cli48_launches[k] + serve48_launches[k] + lm48_launches[k]
     with tempfile.TemporaryDirectory() as tmp:
         phase('48 kHz training')
-        train48_launches = training_phase(torch, seed, Path(tmp), 'config_48k_stereo')
+        train48_launches, _ = training_phase(torch, seed, Path(tmp), 'config_48k_stereo')
+    phase('K4 bf16')
+    k4_fwd16, k4_dx16 = k4_bf16_phase(torch, seed)
+    phase('K5 bf16')
+    k5_16 = k5_bf16_phase(torch, seed)
+    phase('48 kHz bf16 step')
+    step48_launches = step48_bf16_phase(torch, seed)
+    for k in BF16_ENTRIES[:2]:
+        bf16_launches[k] += step48_launches[k]
+    bf16_launches[BF16_ENTRIES[2]] = step48_launches[BF16_ENTRIES[2]]
+    phase('accumulation and guard')
+    accum_guard_phase(torch, seed)
     phase('done')
 
     k4_src = 'encodec_pytorch_tpu_torch/csrc/disc_conv.cu'
@@ -2204,6 +2798,14 @@ def run(seed: int, before_dir=None) -> int:
         dict(name='lm_coder', route='cuda', source='encodec_pytorch_tpu_torch/csrc/lm_coder.cu',
              replaces='encodec_pytorch_tpu/bitstream/fused.py:191',
              launches=lm_launches['lm_coder'] + lm48_launches['lm_coder'], **k6),
+        dict(name='disc_conv_forward_bf16', route='cuda', source=k4_src, replaces=k4_tpu,
+             launches=bf16_launches['disc_conv_forward_bf16'], **k4_fwd16),
+        dict(name='disc_conv_input_grad_bf16', route='cuda', source=k4_src, replaces=k4_tpu,
+             launches=bf16_launches['disc_conv_input_grad_bf16'], **k4_dx16),
+        dict(name='disc_im2col_forward_bf16', route='cuda',
+             source='encodec_pytorch_tpu_torch/csrc/disc_im2col.cu',
+             replaces='encodec_pytorch_tpu/ops/pallas_conv2d.py:42',
+             launches=bf16_launches['disc_im2col_forward_bf16'], **k5_16),
     ]
     log(json.dumps({'kernels': kernels}))
     log(smi)

@@ -13,10 +13,15 @@ literals (``[1024, 512]``), else the string itself; then ``${a.b}``
 references are resolved, as the JAX package resolves them (the checkpoint
 ``save_location`` template).
 
-Defaults that differ from the yaml, because the port runs only this way so
-far: ``tpu.compute_dtype`` is ``float32`` (bf16 is not ported; asking for it
-raises) and ``tpu.disc_pallas_v2`` is True (the discriminator's eligible
-convs go through the CUDA kernel K4; False takes ``F.conv2d``). The key
+``tpu.compute_dtype`` is the yaml's: ``bfloat16`` in ``config`` (the JAX
+package's default, ``configs/config.yaml:71``: bf16 activations, f32 master
+weights, f32 in the LSTM, the quantizer and the losses; ``float32`` by
+override) and ``float32`` in ``config_48k_stereo`` (its yaml's ``:69``).
+``tpu.grad_accum_steps`` (``config.yaml:104-111``) and
+``tpu.skip_nonfinite_steps`` (``:112-117``) are the yaml's too. The default
+that differs from the yaml: ``tpu.disc_pallas_v2`` is True (the
+discriminator's eligible convs go through the CUDA kernel K4; False takes
+``F.conv2d``). The key
 ``tpu.disc_im2col`` is the port's own: True puts the forward of the
 discriminator's F-stride-2 convs on the CUDA kernel K5 (the im2col GEMM of
 ``encodec_pytorch_tpu/ops/pallas_conv2d.py``), False leaves them to K4 or
@@ -52,7 +57,7 @@ DEFAULTS: Dict[str, Any] = {
               'disc_n_ffts': [1024, 2048, 512], 'causal': True, 'norm': 'weight_norm',
               'segment': None, 'name': 'my_encodec'},
     'balancer': {'weights': {'l_t': 0.1, 'l_f': 1, 'l_g': 3, 'l_feat': 3}},
-    'tpu': {'compute_dtype': 'float32', 'disc_pallas_v2': True, 'disc_im2col': False,
+    'tpu': {'compute_dtype': 'bfloat16', 'disc_pallas_v2': True, 'disc_im2col': False,
             'grad_accum_steps': 1, 'skip_nonfinite_steps': False, 'async_checkpoint': True},
 }
 

@@ -19,6 +19,10 @@ for the ragged tail, as the JAX servers do by default.
 (:func:`trainer_state_dict`: the quantizer under ``quantizer.model``) into a
 non-causal ``time_group_norm`` 24 kHz model, as the JAX package's factories
 of those names do.
+
+Every factory takes the SEANet's compute ``dtype`` (float32, the default, or
+bfloat16: the JAX package's ``dtype`` at ``models/model.py:360-370``); the
+parameters stay f32 and the quantizer runs in f32 either way.
 """
 
 import math
@@ -237,19 +241,21 @@ class EncodecModel(nn.Module):
                    audio_normalize: bool = False, segment: Optional[float] = None,
                    name: str = 'unset', ratios=(8, 5, 4, 2), n_q: Optional[int] = None,
                    n_filters: int = 32, pad_mode: str = 'reflect',
-                   generator: Optional[torch.Generator] = None) -> 'EncodecModel':
+                   generator: Optional[torch.Generator] = None,
+                   dtype: torch.dtype = torch.float32) -> 'EncodecModel':
         """Build the architecture on the CPU; ``n_q`` defaults to the
         reference's formula (32 at 24 kHz, 24 kbps). Weights are torch's
         default init drawn from ``generator`` (seed 0 when none is given);
-        codebooks start at zeros, the untrained state."""
+        codebooks start at zeros, the untrained state. ``dtype`` is the
+        SEANet's compute dtype (the parameters and the quantizer stay f32)."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         encoder = SEANetEncoder(channels=channels, norm=model_norm, causal=causal,
                                 ratios=tuple(ratios), n_filters=n_filters,
-                                pad_mode=pad_mode, generator=generator)
+                                pad_mode=pad_mode, generator=generator, dtype=dtype)
         decoder = SEANetDecoder(channels=channels, norm=model_norm, causal=causal,
                                 ratios=tuple(ratios), n_filters=n_filters,
-                                pad_mode=pad_mode, generator=generator)
+                                pad_mode=pad_mode, generator=generator, dtype=dtype)
         if n_q is None:
             n_q = int(1000 * target_bandwidths[-1]
                       // (math.ceil(sample_rate / encoder.hop_length) * 10))
@@ -260,14 +266,15 @@ class EncodecModel(nn.Module):
 
 def encodec_model_24khz(checkpoint: Optional[Union[str, os.PathLike]] = None,
                         pretrained: bool = False, device: Union[str, torch.device] = 'cuda',
-                        generator: Optional[torch.Generator] = None) -> EncodecModel:
+                        generator: Optional[torch.Generator] = None,
+                        dtype: torch.dtype = torch.float32) -> EncodecModel:
     """The causal 24 kHz model, in eval mode on ``device``, with the weights of
     ``checkpoint`` (a released-layout ``.th``) when one is given."""
     model = EncodecModel._get_model(
         [1.5, 3., 6, 12., 24.], 24_000, 1, causal=True, model_norm='weight_norm',
         audio_normalize=False,
         name='encodec_24khz' if (pretrained or checkpoint) else 'unset',
-        generator=generator)
+        generator=generator, dtype=dtype)
     if checkpoint:
         load_checkpoint(model, checkpoint)
     return model.to(device).eval()
@@ -275,7 +282,8 @@ def encodec_model_24khz(checkpoint: Optional[Union[str, os.PathLike]] = None,
 
 def encodec_model_48khz(checkpoint: Optional[Union[str, os.PathLike]] = None,
                         pretrained: bool = False, device: Union[str, torch.device] = 'cuda',
-                        generator: Optional[torch.Generator] = None) -> EncodecModel:
+                        generator: Optional[torch.Generator] = None,
+                        dtype: torch.dtype = torch.float32) -> EncodecModel:
     """The non-causal, normalized, stereo 48 kHz model with 1 s segments
     (``time_group_norm``), in eval mode on ``device``, with the weights of
     ``checkpoint`` (a released-layout ``.th``) when one is given."""
@@ -283,14 +291,15 @@ def encodec_model_48khz(checkpoint: Optional[Union[str, os.PathLike]] = None,
         [3., 6., 12., 24.], 48_000, 2, causal=False, model_norm='time_group_norm',
         audio_normalize=True, segment=1.,
         name='encodec_48khz' if (pretrained or checkpoint) else 'unset',
-        generator=generator)
+        generator=generator, dtype=dtype)
     if checkpoint:
         load_checkpoint(model, checkpoint)
     return model.to(device).eval()
 
 
 def my_encodec_model(checkpoint: Union[str, os.PathLike], ratios=(8, 5, 4, 2),
-                     device: Union[str, torch.device] = 'cuda') -> EncodecModel:
+                     device: Union[str, torch.device] = 'cuda',
+                     dtype: torch.dtype = torch.float32) -> EncodecModel:
     """A model trained by the trainer (``my_encodec``): 24 kHz mono,
     non-causal, ``time_group_norm``, normalized, unsegmented, with the
     weights of ``checkpoint`` (the trainer's layout, see
@@ -300,21 +309,22 @@ def my_encodec_model(checkpoint: Union[str, os.PathLike], ratios=(8, 5, 4, 2),
     model = EncodecModel._get_model(
         [1.5, 3., 6, 12., 24.], 24_000, 1, causal=False, model_norm='time_group_norm',
         audio_normalize=True, segment=None, name='my_encodec', ratios=ratios,
-        n_q=checkpoint_n_q(state))
+        n_q=checkpoint_n_q(state), dtype=dtype)
     model.load_state_dict(state, strict=True)
     return model.to(device).eval()
 
 
 def encodec_model_bw(checkpoint: Union[str, os.PathLike],
                      bandwidth: Union[float, Sequence[float]] = 24.,
-                     device: Union[str, torch.device] = 'cuda') -> EncodecModel:
+                     device: Union[str, torch.device] = 'cuda',
+                     dtype: torch.dtype = torch.float32) -> EncodecModel:
     """A trained model with its own target bandwidths (one, or a list) and
     1 s segments; otherwise as :func:`my_encodec_model`, with the default
     ``n_q`` of the largest bandwidth."""
     bandwidths = list(bandwidth) if isinstance(bandwidth, (list, tuple)) else [bandwidth]
     model = EncodecModel._get_model(
         bandwidths, 24_000, 1, causal=False, model_norm='time_group_norm',
-        audio_normalize=True, segment=1., name='my_encodec')
+        audio_normalize=True, segment=1., name='my_encodec', dtype=dtype)
     model.load_state_dict(trainer_state_dict(checkpoint), strict=True)
     return model.to(device).eval()
 

@@ -11,6 +11,12 @@ call at three scales) when ``disc_kernel`` is on; with ``disc_im2col`` on too,
 the forward of conv_1..conv_3 is kernel K5's (9 launches a call) and their
 input gradient stays K4's.
 
+In bfloat16 (``dtype``) the STFT and the spectrogram stay f32, as the JAX
+module's do; each conv casts its input and weight to bf16 (K4 and K5 in their
+bf16 forms), the activations between convs are bf16, and the logits and the
+feature maps are cast to f32 before the losses
+(``encodec_pytorch_tpu/models/msstftd.py:113-117``).
+
 State-dict keys are the reference torch layout that
 ``encodec_pytorch_tpu/export.py`` ``msstftd_state_dict`` writes:
 ``discriminators.{i}.convs.{j}.conv.*``, ``discriminators.{i}.conv_post.conv.*``
@@ -56,11 +62,12 @@ class DiscriminatorSTFT(nn.Module):
     def __init__(self, filters: int, in_channels: int = 1, out_channels: int = 1,
                  n_fft: int = 1024, hop_length: int = 256, win_length: int = 1024,
                  disc_kernel: bool = False, disc_im2col: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_fft, self.hop_length, self.win_length = n_fft, hop_length, win_length
         self.spec_transform = _Spectrogram(win_length)
-        conv = dict(disc_kernel=disc_kernel, generator=generator)
+        conv = dict(disc_kernel=disc_kernel, generator=generator, dtype=dtype)
         convs = [NormConv2d(2 * in_channels, filters, KERNEL, padding=get_2d_padding(KERNEL),
                             norm='none', **conv)]
         for dilation in DILATIONS:
@@ -73,7 +80,7 @@ class DiscriminatorSTFT(nn.Module):
                                 norm='weight_norm', **conv))
         self.convs = nn.ModuleList(convs)
         self.conv_post = NormConv2d(filters, out_channels, ks, padding=get_2d_padding(ks),
-                                    norm='weight_norm', generator=generator)
+                                    norm='weight_norm', generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor):
         spec = stft(x, self.n_fft, self.hop_length, self.win_length,
@@ -82,8 +89,8 @@ class DiscriminatorSTFT(nn.Module):
         fmap: List[torch.Tensor] = []
         for layer in self.convs:
             z = F.leaky_relu(layer(z), SLOPE)
-            fmap.append(z)
-        return self.conv_post(z), fmap
+            fmap.append(z.float())
+        return self.conv_post(z).float(), fmap
 
 
 class MultiScaleSTFTDiscriminator(nn.Module):
@@ -95,7 +102,8 @@ class MultiScaleSTFTDiscriminator(nn.Module):
                  hop_lengths: Sequence[int] = (256, 512, 128),
                  win_lengths: Sequence[int] = (1024, 2048, 512),
                  disc_kernel: bool = False, disc_im2col: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not len(n_ffts) == len(hop_lengths) == len(win_lengths):
             raise ValueError('n_ffts, hop_lengths and win_lengths must have one entry a scale')
@@ -103,7 +111,7 @@ class MultiScaleSTFTDiscriminator(nn.Module):
             DiscriminatorSTFT(filters, in_channels, out_channels, n_fft=n_fft,
                               hop_length=hop, win_length=win,
                               disc_kernel=disc_kernel, disc_im2col=disc_im2col,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
             for n_fft, hop, win in zip(n_ffts, hop_lengths, win_lengths))
 
     def forward(self, x: torch.Tensor):

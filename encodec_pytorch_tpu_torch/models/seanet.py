@@ -7,11 +7,18 @@ reference torch layout (``model.{i}...``) that
 hold no parameters.
 
 Only what the model factories set is a parameter here (channels, width,
-ratios, norm, causality, pad mode; the norm reaches every conv); the rest of the architecture is the
+ratios, norm, causality, pad mode, compute dtype; the norm and the dtype
+reach every conv); the rest of the architecture is the
 JAX package's default: one residual block per stage with kernels (3, 1)
 and dilation 1, a 1×1 conv shortcut, channel compression 2, ELU(1.0),
 7-wide first and last convs, a 2-layer LSTM and 128-d latents. With ratios
 (8, 5, 4, 2) the hop is 320: 75 frames a second at 24 kHz.
+
+In bfloat16 (the JAX package's activation pipeline) the activations between
+layers are bf16, the LSTM computes in f32 behind its own casts, and the
+encoder's latent and the decoder's waveform are cast to f32 at the
+boundaries (``encodec_pytorch_tpu/models/seanet.py:165-167``, ``:254``), so
+the quantizer and the losses see f32.
 """
 
 from typing import Optional, Sequence
@@ -37,27 +44,29 @@ class SEANetResnetBlock(nn.Module):
     """``block``: [ELU, k3 conv to dim//2, ELU, k1 conv back to dim], plus
     ``shortcut``: a 1×1 conv.
 
-    Two paths, chosen by where the call runs and by the norm, never as a
-    fallback (:meth:`takes_kernel`): on CUDA with gradients off (``encode``/
-    ``decode``, the CLI, the servers, streaming) a block whose convs are
-    ``weight_norm`` or ``none`` is one launch of kernel K3
+    Two paths, chosen by where the call runs, the norm and the dtype, never
+    as a fallback (:meth:`takes_kernel`): on CUDA with gradients off
+    (``encode``/``decode``, the CLI, the servers, streaming) a float32 block
+    whose convs are ``weight_norm`` or ``none`` is one launch of kernel K3
     (:func:`..ops.resblock_kernel.resblock`) on the materialised weights;
     otherwise (the CPU; training, which needs autograd, as the JAX package's
-    training never reaches its Pallas block either; and ``time_group_norm``
+    training never reaches its Pallas block either; ``time_group_norm``
     blocks, whose GroupNorms K3 cannot fuse, as the JAX package's
-    ``pallas_resblock`` cannot) it is the conv sequence. K3 raises rather
-    than fall back."""
+    ``pallas_resblock`` cannot; and bfloat16 blocks, since the TPU kernel K3
+    ports is f32 only, its output and scratch f32 at ``pallas_resblock.py:109-111``)
+    it is the conv sequence. K3 raises rather than fall back."""
 
     def __init__(self, dim: int, norm: str, causal: bool, pad_mode: str,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = dim // COMPRESS
-        conv = dict(norm=norm, causal=causal, pad_mode=pad_mode, generator=generator)
+        conv = dict(norm=norm, causal=causal, pad_mode=pad_mode, generator=generator,
+                    dtype=dtype)
         self.block = nn.Sequential(nn.ELU(), SConv1d(dim, hidden, RESIDUAL_KERNEL_SIZE, **conv),
                                    nn.ELU(), SConv1d(hidden, dim, 1, **conv))
         self.shortcut = SConv1d(dim, dim, 1, **conv)
         self.causal, self.pad_mode = causal, pad_mode
-        self.fusable = norm in FUSABLE_NORMS
+        self.fusable = norm in FUSABLE_NORMS and dtype == torch.float32
         self.dilation = self.block[1].conv.dilation
         self._convs = (self.block[1].conv.conv, self.block[3].conv.conv, self.shortcut.conv.conv)
         self._fused = None
@@ -77,7 +86,8 @@ class SEANetResnetBlock(nn.Module):
         return self._fused[1]
 
     def takes_kernel(self, device_type: str) -> bool:
-        """Whether a call on ``device_type`` in the current grad mode runs K3."""
+        """Whether a call on ``device_type`` in the current grad mode runs K3:
+        float32 blocks only, and those of a norm that acts on the weights."""
         return self.fusable and device_type == 'cuda' and not torch.is_grad_enabled()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,13 +105,15 @@ class SEANetEncoder(nn.Module):
     def __init__(self, channels: int = 1, n_filters: int = 32,
                  ratios: Sequence[int] = (8, 5, 4, 2), norm: str = 'weight_norm',
                  causal: bool = False, pad_mode: str = 'reflect',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dimension = DIMENSION
         self.ratios = list(ratios)
         self.channels, self.n_filters = channels, n_filters
-        self.causal, self.pad_mode = causal, pad_mode
-        conv = dict(norm=norm, causal=causal, pad_mode=pad_mode, generator=generator)
+        self.causal, self.pad_mode, self.dtype = causal, pad_mode, dtype
+        conv = dict(norm=norm, causal=causal, pad_mode=pad_mode, generator=generator,
+                    dtype=dtype)
         mult = 1
         model: list = [SConv1d(channels, n_filters, KERNEL_SIZE, **conv)]
         for ratio in reversed(self.ratios):
@@ -118,7 +130,8 @@ class SEANetEncoder(nn.Module):
         return int(np.prod(self.ratios))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+        """The latent, f32 whatever the compute dtype."""
+        return self.model(x).float()
 
 
 class SEANetDecoder(nn.Module):
@@ -127,13 +140,14 @@ class SEANetDecoder(nn.Module):
     def __init__(self, channels: int = 1, n_filters: int = 32,
                  ratios: Sequence[int] = (8, 5, 4, 2), norm: str = 'weight_norm',
                  causal: bool = False, pad_mode: str = 'reflect',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dimension = DIMENSION
         self.ratios = list(ratios)
         self.channels, self.n_filters = channels, n_filters
-        self.causal, self.pad_mode = causal, pad_mode
-        conv = dict(norm=norm, causal=causal, generator=generator)
+        self.causal, self.pad_mode, self.dtype = causal, pad_mode, dtype
+        conv = dict(norm=norm, causal=causal, generator=generator, dtype=dtype)
         mult = 2 ** len(ratios)
         model: list = [SConv1d(DIMENSION, mult * n_filters, KERNEL_SIZE, pad_mode=pad_mode,
                                **conv),
@@ -148,4 +162,5 @@ class SEANetDecoder(nn.Module):
         self.model = nn.Sequential(*model)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return self.model(z)
+        """The waveform, f32 whatever the compute dtype."""
+        return self.model(z).float()

@@ -123,6 +123,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.encodec_disc_im2col_fwd_f32.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.encodec_disc_im2col_pack_f32.restype = i
     lib.encodec_disc_im2col_pack_f32.argtypes = [p, p, p]
+    lib.encodec_disc_conv_fwd_bf16.restype = i
+    lib.encodec_disc_conv_fwd_bf16.argtypes = [p, p, p, p] + [i] * 12 + [p]
+    lib.encodec_disc_conv_dx_bf16.restype = i
+    lib.encodec_disc_conv_dx_bf16.argtypes = [p, p, p] + [i] * 12 + [p]
+    lib.encodec_disc_conv_pack_bf16.restype = i
+    lib.encodec_disc_conv_pack_bf16.argtypes = [p, p] + [i] * 7 + [p]
+    lib.encodec_disc_im2col_fwd_bf16.restype = i
+    lib.encodec_disc_im2col_fwd_bf16.argtypes = [p, p, p, p] + [i] * 10 + [p]
+    lib.encodec_disc_im2col_pack_bf16.restype = i
+    lib.encodec_disc_im2col_pack_bf16.argtypes = [p, p, p]
     lib.encodec_resblock_f32.restype = i
     lib.encodec_resblock_f32.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.encodec_resblock_config.restype = None

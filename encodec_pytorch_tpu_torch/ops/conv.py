@@ -23,6 +23,16 @@ for ``SConv1d`` and ``convtr.convtr.*`` for ``SConvTranspose1d``. The weight is
 ``g · v / ‖v‖`` with the norm over every axis but the first, computed in
 ``forward`` as the JAX package does, so the keys stay those of a released
 checkpoint (``torch.nn.utils.parametrizations.weight_norm`` renames them).
+
+Each conv takes a compute ``dtype`` (float32 or bfloat16), the JAX package's
+dtype rule (``encodec_pytorch_tpu/ops/conv.py:36-46`` and its conv bodies):
+the parameters stay f32 masters and the weight norm runs on them in f32; the
+input and the weight are cast to ``dtype``; in bf16 the products are summed
+in f32 and the output is stored in bf16, the bias is added after that
+rounding, in bf16, and ``time_group_norm`` runs in f32 and is cast back. The
+1-D convs stay cuDNN calls in bf16 (the JAX package runs them outside any
+Pallas kernel); the 2-D convs routed to K4 and K5 take those kernels' bf16
+forms.
 """
 
 import math
@@ -80,9 +90,22 @@ def _norm_except_dim0(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.square(v), dim=tuple(range(1, v.dim())), keepdim=True))
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """A compute dtype from a torch dtype or its name (``'float32'``,
+    ``'bfloat16'``); others raise."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype, None)
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f'compute dtype must be float32 or bfloat16, got {dtype}')
+    return dtype
+
+
 def _output_norm(norm: str, channels: int) -> Optional[nn.GroupNorm]:
     """The GroupNorm that ``time_group_norm`` applies to a conv's output (in
-    f32, as every conv of the port runs); None for the norms that act on the
+    f32, whatever the compute dtype); None for the norms that act on the
     weight."""
     if norm == 'time_group_norm':
         return nn.GroupNorm(1, channels, eps=GROUP_NORM_EPS)
@@ -90,24 +113,46 @@ def _output_norm(norm: str, channels: int) -> Optional[nn.GroupNorm]:
 
 
 def _apply_norm(module: Optional[nn.GroupNorm], y: torch.Tensor) -> torch.Tensor:
-    return y if module is None else module(y)
+    """``module(y)`` in f32, cast back to y's dtype."""
+    return y if module is None else module(y.float()).to(y.dtype)
+
+
+def _biased(conv, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``conv(x, w, bias)`` in x's dtype: in f32 the bias inside the call; in
+    bf16 the conv's output rounded to bf16 first, then the bias added in
+    bf16. A bf16 conv is cuDNN's on the card; on the CPU it is the f32 conv of
+    the bf16 operands rounded to bf16 (the same sums: torch's CPU bf16 conv1d
+    returns wrong ones at some strided shapes, e.g. 16 -> 32 channels, kernel
+    8, stride 4)."""
+    if x.dtype == torch.float32:
+        return conv(x, w, bias, **kwargs)
+    if x.device.type == 'cpu':
+        y = conv(x.float(), w.float(), None, **kwargs).to(x.dtype)
+    else:
+        y = conv(x, w, None, **kwargs)
+    return y + bias.reshape(1, -1, *([1] * (x.dim() - 2)))
 
 
 class NormConv1d(nn.Module):
-    """VALID Conv1d with a normalized weight. ``[B, C_in, T]`` → ``[B, C_out, T']``."""
+    """VALID Conv1d with a normalized weight. ``[B, C_in, T]`` → ``[B, C_out, T']``
+    in ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, norm: str = 'none',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride, self.dilation = stride, dilation
+        self.dtype = compute_dtype(dtype)
         self.conv = _ConvWeight((out_channels, in_channels, kernel_size),
                                 in_channels * kernel_size, out_channels, norm, generator)
         self.norm = _output_norm(norm, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _apply_norm(self.norm, F.conv1d(x, self.conv.kernel(), self.conv.bias,
-                                               stride=self.stride, dilation=self.dilation))
+        d = self.dtype
+        return _apply_norm(self.norm, _biased(F.conv1d, x.to(d), self.conv.kernel().to(d),
+                                              self.conv.bias.to(d), stride=self.stride,
+                                              dilation=self.dilation))
 
 
 class NormConvTranspose1d(nn.Module):
@@ -116,9 +161,11 @@ class NormConvTranspose1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, norm: str = 'none',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
+        self.dtype = compute_dtype(dtype)
         self.convtr = _ConvWeight((in_channels, out_channels, kernel_size),
                                   out_channels * kernel_size, out_channels, norm, generator)
         self.norm = _output_norm(norm, out_channels)
@@ -126,8 +173,10 @@ class NormConvTranspose1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The full transposed conv, normalized before any trim (as in the
         JAX package)."""
-        return _apply_norm(self.norm, F.conv_transpose1d(x, self.convtr.kernel(),
-                                                         self.convtr.bias, stride=self.stride))
+        d = self.dtype
+        return _apply_norm(self.norm, _biased(F.conv_transpose1d, x.to(d),
+                                              self.convtr.kernel().to(d),
+                                              self.convtr.bias.to(d), stride=self.stride))
 
 
 class NormConv2d(nn.Module):
@@ -139,16 +188,18 @@ class NormConv2d(nn.Module):
     kernel K5 takes (:func:`..ops.disc_im2col_kernel.eligible`: the 3×9,
     F-stride-2 convs); otherwise ``uses_kernel`` is set when ``disc_kernel``
     is on and the conv is one the JAX package routes to its kernel
-    (:func:`..ops.disc_conv_kernel.eligible`).
+    (:func:`..ops.disc_conv_kernel.eligible`). Both kernels run in ``dtype``.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), dilation: Tuple[int, int] = (1, 1),
                  padding: Tuple[int, int] = (0, 0), norm: str = 'none',
                  disc_kernel: bool = False, disc_im2col: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         kh, kw = kernel_size
+        self.dtype = compute_dtype(dtype)
         self.stride, self.dilation, self.padding = tuple(stride), tuple(dilation), tuple(padding)
         self.conv = _ConvWeight((out_channels, in_channels, kh, kw), in_channels * kh * kw,
                                 out_channels, norm, generator)
@@ -159,16 +210,15 @@ class NormConv2d(nn.Module):
             in_channels, out_channels, kernel_size, self.stride, self.dilation, self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.conv.kernel()
+        d = self.dtype
+        x, w, bias = x.to(d), self.conv.kernel().to(d), self.conv.bias.to(d)
         if self.uses_im2col:
-            y = disc_im2col_kernel.disc_im2col(x, w, self.conv.bias, self.dilation,
-                                               self.padding)
+            y = disc_im2col_kernel.disc_im2col(x, w, bias, self.dilation, self.padding)
         elif self.uses_kernel:
-            y = disc_conv_kernel.disc_conv(x, w, self.conv.bias, self.stride,
-                                           self.dilation, self.padding)
+            y = disc_conv_kernel.disc_conv(x, w, bias, self.stride, self.dilation, self.padding)
         else:
-            y = F.conv2d(x, w, self.conv.bias, stride=self.stride, padding=self.padding,
-                         dilation=self.dilation)
+            y = _biased(F.conv2d, x, w, bias, stride=self.stride, padding=self.padding,
+                        dilation=self.dilation)
         return _apply_norm(self.norm, y)
 
 
@@ -182,12 +232,13 @@ class SConv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, causal: bool = False,
                  norm: str = 'none', pad_mode: str = 'reflect',
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if causal and norm == 'time_group_norm':
             raise ValueError("GroupNorm doesn't support causal evaluation.")
         self.conv = NormConv1d(in_channels, out_channels, kernel_size, stride,
-                               dilation, norm, generator)
+                               dilation, norm, generator, dtype)
         self.kernel_size = kernel_size
         self.causal = causal
         self.pad_mode = pad_mode
@@ -217,12 +268,13 @@ class SConvTranspose1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, causal: bool = False, norm: str = 'none',
                  trim_right_ratio: float = 1.,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not causal and trim_right_ratio != 1.:
             raise ValueError("`trim_right_ratio` != 1.0 only makes sense for causal convolutions")
         self.convtr = NormConvTranspose1d(in_channels, out_channels, kernel_size,
-                                          stride, norm, generator)
+                                          stride, norm, generator, dtype)
         self.trim_right_ratio = trim_right_ratio
         padding_total = kernel_size - stride
         if causal:

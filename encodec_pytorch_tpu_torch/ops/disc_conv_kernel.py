@@ -16,16 +16,27 @@ dilation, any time dilation and zero padding, and the discriminator's taps:
   CUDA): K4 forward, K4 dx, and the weight gradient from
   ``torch.nn.grad.conv2d_weight``, as the JAX package takes dW from XLA.
 
-K4 runs on the tensor cores in 3xTF32: each operand is split into two TF32
-parts (:func:`split_tf32`, the bits of ``cvt.rna.tf32.f32``) and each term
-is the sum of three TF32 products, so the result holds the f32 conv to within
-1e-5 of its largest value. :func:`pack_weight` splits the weights once a
-call and lays them out in the order of the kernel's ``mma`` fragments; on
-the card :func:`pack_weight_cuda` does the same in one launch.
+K4 takes float32 or bfloat16, as the TPU kernel takes its input's dtype.
+In float32 it runs on the tensor cores in 3xTF32: each operand is split into
+two TF32 parts (:func:`split_tf32`, the bits of ``cvt.rna.tf32.f32``) and each
+term is the sum of three TF32 products, so the result holds the f32 conv to
+within 1e-5 of its largest value. :func:`pack_weight` splits the weights once
+a call and lays them out in the order of the kernel's ``mma`` fragments; on
+the card :func:`pack_weight_cuda` does the same in one launch. In bfloat16
+(:func:`disc_conv_forward_bf16`, :func:`disc_conv_input_grad_bf16`) it is one
+pass of bf16 ``mma`` products summed in f32, the sum rounded to bf16 and the
+bias added after that rounding, in bf16 (the JAX package's dtype rule,
+``ops/conv.py:263``); its weights are laid out by :func:`pack_weight_bf16`
+(one launch on the card), with no hi/lo halves. The plain versions in bf16
+are the f32 conv of the bf16 operands, rounded to bf16, then the bias added
+in bf16: that defines the semantics exactly, whatever a bf16 conv on the CPU
+does.
 
 Each wrapper runs its plain version only for CPU tensors. For a CUDA tensor it
-launches the kernel, or raises on a dtype, shape or stride it does not take.
-``launches`` on each entry counts kernel launches. Which convs are routed here
+launches the kernel of the tensors' dtype, or raises on a dtype, shape or
+stride it does not take: a bf16 call never reaches cuDNN or the f32 kernel.
+``launches`` on each entry counts kernel launches (the bf16 entries have
+their own). Which convs are routed here
 is :func:`eligible`, a copy of the JAX package's ``v2_ok``
 (``ops/conv.py:233-240``). The F-phase packing (``fpack``), the
 double-buffered im2col and the 128-lane padding of the TPU kernel are not
@@ -51,11 +62,13 @@ Pair = Tuple[int, int]
 
 # (KT, KF, F-stride) of the convs the kernel is built for
 KERNEL_TAPS = ((3, 9, 2), (3, 3, 1))
-# the kernel's tiles (csrc/disc_conv.cu): summed channels a chunk, output
-# channels a block, and the m16n8k8 fragments' lanes
+# the kernel's tiles (csrc/disc_conv.cu): summed channels a chunk (f32;
+# bf16), output channels a block, and the mma fragments' lanes
 CHUNK = 4
+CHUNK_BF16 = 8
 OUT_TILE = 32
 LANES = 32
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def eligible(in_channels: int, out_channels: int, kernel_size: Pair, stride: Pair,
@@ -81,15 +94,16 @@ def _geometry(w: torch.Tensor, stride: Pair, dilation: Pair, padding: Pair):
     return Cout, Cin, KT, KF, stride[1], dilation[0], padding[0], padding[1]
 
 
-def _check_cuda(what: str, *tensors: Optional[torch.Tensor]) -> None:
+def _check_cuda(what: str, *tensors: Optional[torch.Tensor],
+                dtype: torch.dtype = torch.float32) -> None:
     dev = tensors[0].device
     for t in tensors:
         if t is None:
             continue
         if t.device.type != 'cuda' or t.device != dev:
             raise ValueError(f'{what}: tensors must be on one CUDA device (or all on the CPU)')
-        if t.dtype != torch.float32:
-            raise TypeError(f'{what}: float32 only, got {t.dtype}')
+        if t.dtype != dtype:
+            raise TypeError(f'{what}: {dtype} only (all inputs one dtype), got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{what}: inputs must be contiguous')
 
@@ -133,53 +147,109 @@ def pack_weight(wc: torch.Tensor) -> torch.Tensor:
                                            4).contiguous()
 
 
+def pack_weight_bf16(wc: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's weight operand, from the correlation weights ``wc [P,
+    C, KT, NJ, O]`` (bf16), laid out as ``[P, O/32, C/8, ceil(KT·NJ/2), 2, 32,
+    8]`` (C, O and the taps padded with zeros): phase, output tile, chunk of 8
+    summed channels, k-step (two taps), pair of n-fragments ``h``, lane ``4g +
+    q``, and the lane's four 32-bit B registers as bf16 pairs: for n-fragment
+    ``2h + nl`` and tap slot ``r``, register ``2·nl + r`` holds summed channels
+    ``2q`` (low half) and ``2q + 1`` at the k-step's tap ``r``, for output
+    channel ``8·(2h + nl) + g``. No rounding: the values are moved."""
+    P, C, KT, NJ, O = wc.shape
+    taps = KT * NJ
+    steps = -(-taps // 2)
+    Cp, Op = -(-C // CHUNK_BF16) * CHUNK_BF16, -(-O // OUT_TILE) * OUT_TILE
+    w = F.pad(wc.reshape(P, C, taps, O), (0, Op - O, 0, 2 * steps - taps, 0, Cp - C))
+    # p, chunk, q, half, k-step, tap slot, output tile, h, nl, g
+    w = w.reshape(P, Cp // CHUNK_BF16, 4, 2, steps, 2, Op // OUT_TILE, 2, 2, 8)
+    w = w.permute(0, 6, 1, 4, 7, 9, 2, 8, 5, 3)
+    return w.reshape(P, Op // OUT_TILE, Cp // CHUNK_BF16, steps, 2, LANES, 8).contiguous()
+
+
 def pack_weight_cuda(w: torch.Tensor, sf: int, dx: bool) -> torch.Tensor:
-    """:func:`pack_weight` of the forward's (``dx`` False:
-    ``w.permute(1, 2, 3, 0)[None]``) or the input gradient's
-    (``pack_dx_weight(w, sf)``) correlation weights, in one launch on the
-    card, from ``w [Cout, Cin, KT, KF]`` (contiguous f32 on CUDA). The same
-    bits as the plain version."""
+    """:func:`pack_weight` (float32 ``w``) or :func:`pack_weight_bf16`
+    (bfloat16 ``w``) of the forward's (``dx`` False: ``w.permute(1, 2, 3,
+    0)[None]``) or the input gradient's (``pack_dx_weight(w, sf)``)
+    correlation weights, in one launch on the card, from ``w [Cout, Cin, KT,
+    KF]`` (contiguous, on CUDA). The same bits as the plain version."""
     Cout, Cin, KT, KF = w.shape
     C, O, NJ = (Cout, Cin, -(-KF // sf)) if dx else (Cin, Cout, KF)
-    out = torch.empty(sf if dx else 1, -(-O // OUT_TILE), -(-C // CHUNK), -(-KT * NJ // 2), 4,
-                      LANES, 4, device=w.device, dtype=torch.float32)
+    lead = (sf if dx else 1, -(-O // OUT_TILE))
+    steps = -(-KT * NJ // 2)
+    lib = _build.load()
+    if w.dtype == torch.bfloat16:
+        out = torch.empty(*lead, -(-C // CHUNK_BF16), steps, 2, LANES, 8, device=w.device,
+                          dtype=torch.bfloat16)
+        entry = lib.encodec_disc_conv_pack_bf16
+    else:
+        out = torch.empty(*lead, -(-C // CHUNK), steps, 4, LANES, 4, device=w.device,
+                          dtype=torch.float32)
+        entry = lib.encodec_disc_conv_pack_f32
     stream = torch.cuda.current_stream(w.device).cuda_stream
-    rc = _build.load().encodec_disc_conv_pack_f32(
-        w.data_ptr(), out.data_ptr(), Cout, Cin, KT, KF, sf, int(dx), w.device.index,
-        ctypes.c_void_p(stream))
+    rc = entry(w.data_ptr(), out.data_ptr(), Cout, Cin, KT, KF, sf, int(dx), w.device.index,
+               ctypes.c_void_p(stream))
     _build.check(rc, 'disc_conv weight-packing kernel')
     return out
 
 
 def disc_conv_forward_reference(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                                 stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
-    """Plain forward: ``F.conv2d``."""
-    return F.conv2d(x, w, bias, stride=stride, padding=padding, dilation=dilation)
+    """Plain forward: ``F.conv2d``; in bf16, the f32 conv of the bf16
+    operands rounded to bf16, then the bias added in bf16."""
+    if x.dtype == torch.float32:
+        return F.conv2d(x, w, bias, stride=stride, padding=padding, dilation=dilation)
+    y = F.conv2d(x.float(), w.float(), None, stride=stride, padding=padding,
+                 dilation=dilation).to(x.dtype)
+    return y if bias is None else y + bias.reshape(1, -1, 1, 1)
 
 
 def disc_conv_input_grad_reference(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
                                    stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
-    """Plain input gradient: ``torch.nn.grad.conv2d_input``."""
-    return torch.nn.grad.conv2d_input(tuple(x_shape), w, g, stride=stride, padding=padding,
-                                      dilation=dilation)
+    """Plain input gradient: ``torch.nn.grad.conv2d_input``; in bf16, that
+    of the bf16 operands in f32, rounded to bf16."""
+    return torch.nn.grad.conv2d_input(tuple(x_shape), w.float(), g.float(), stride=stride,
+                                      padding=padding, dilation=dilation).to(g.dtype)
+
+
+def _forward_checked(what: str, x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                     stride: Pair, dilation: Pair, padding: Pair,
+                     dtype: torch.dtype) -> torch.Tensor:
+    _check_cuda(what, x, w, bias, dtype=dtype)
+    Cout, Cin, KT, KF, sf, dt, pt, pf = _geometry(w, stride, dilation, padding)
+    if x.dim() != 4 or x.shape[1] != Cin or (bias is not None and bias.shape != (Cout,)):
+        raise ValueError(f'{what}: x {tuple(x.shape)}, w {tuple(w.shape)}')
+    B, _, T, F_ = x.shape
+    To, Fo = out_size(T, F_, KT, KF, sf, dt, pt, pf)
+    if To <= 0 or Fo <= 0:
+        raise ValueError(f'{what}: empty output for x {tuple(x.shape)}')
+    return forward_packed(x, pack_weight_cuda(w, sf, dx=False), bias, w.shape, stride, dilation,
+                          padding)
 
 
 def disc_conv_forward(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                       stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
-    """``F.conv2d(x, w, bias, stride, padding, dilation)``; kernel K4 on CUDA."""
+    """``F.conv2d(x, w, bias, stride, padding, dilation)``; kernel K4 on CUDA
+    (bfloat16 inputs: :func:`disc_conv_forward_bf16`)."""
     if x.device.type == 'cpu' and w.device.type == 'cpu':
         return disc_conv_forward_reference(x, w, bias, stride, dilation, padding)
-    _check_cuda('disc_conv_forward', x, w, bias)
-    Cout, Cin, KT, KF, sf, dt, pt, pf = _geometry(w, stride, dilation, padding)
-    if x.dim() != 4 or x.shape[1] != Cin or (bias is not None and bias.shape != (Cout,)):
-        raise ValueError(f'disc_conv_forward: x {tuple(x.shape)}, w {tuple(w.shape)}')
-    B, _, T, F_ = x.shape
-    To, Fo = out_size(T, F_, KT, KF, sf, dt, pt, pf)
-    if To <= 0 or Fo <= 0:
-        raise ValueError(f'disc_conv_forward: empty output for x {tuple(x.shape)}')
-    y = forward_packed(x, pack_weight_cuda(w, sf, dx=False), bias, w.shape, stride, dilation,
-                       padding)
+    if x.dtype == torch.bfloat16:
+        return disc_conv_forward_bf16(x, w, bias, stride, dilation, padding)
+    y = _forward_checked('disc_conv_forward', x, w, bias, stride, dilation, padding,
+                         torch.float32)
     disc_conv_forward.launches += 1
+    return y
+
+
+def disc_conv_forward_bf16(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                           stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
+    """The conv in bf16 (x, w and bias bf16): K4's bf16 kernel on CUDA, the
+    plain version on the CPU."""
+    if x.device.type == 'cpu' and w.device.type == 'cpu':
+        return disc_conv_forward_reference(x, w, bias, stride, dilation, padding)
+    y = _forward_checked('disc_conv_forward_bf16', x, w, bias, stride, dilation, padding,
+                         torch.bfloat16)
+    disc_conv_forward_bf16.launches += 1
     return y
 
 
@@ -194,42 +264,69 @@ def pack_dx_weight(w: torch.Tensor, sf: int) -> torch.Tensor:
     return wp.permute(4, 0, 2, 3, 1).contiguous()
 
 
-def disc_conv_input_grad(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
-                         stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
-    """Gradient with respect to ``x`` of the conv, given the output's
-    cotangent ``g``; kernel K4's dx entry on CUDA."""
-    if g.device.type == 'cpu' and w.device.type == 'cpu':
-        return disc_conv_input_grad_reference(g, w, x_shape, stride, dilation, padding)
-    _check_cuda('disc_conv_input_grad', g, w)
+def _input_grad_checked(what: str, g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
+                        stride: Pair, dilation: Pair, padding: Pair,
+                        dtype: torch.dtype) -> torch.Tensor:
+    _check_cuda(what, g, w, dtype=dtype)
     Cout, Cin, KT, KF, sf, dt, pt, pf = _geometry(w, stride, dilation, padding)
     B, cin, T, F_ = x_shape
     if g.dim() != 4 or cin != Cin or tuple(g.shape) != (B, Cout, *out_size(
             T, F_, KT, KF, sf, dt, pt, pf)):
-        raise ValueError(f'disc_conv_input_grad: g {tuple(g.shape)}, w {tuple(w.shape)}, '
-                         f'x {tuple(x_shape)}')
-    dx = input_grad_packed(g, pack_weight_cuda(w, sf, dx=True), w.shape, x_shape, stride,
-                           dilation, padding)
+        raise ValueError(f'{what}: g {tuple(g.shape)}, w {tuple(w.shape)}, x {tuple(x_shape)}')
+    return input_grad_packed(g, pack_weight_cuda(w, sf, dx=True), w.shape, x_shape, stride,
+                             dilation, padding)
+
+
+def disc_conv_input_grad(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
+                         stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
+    """Gradient with respect to ``x`` of the conv, given the output's
+    cotangent ``g``; kernel K4's dx entry on CUDA (bfloat16 inputs:
+    :func:`disc_conv_input_grad_bf16`)."""
+    if g.device.type == 'cpu' and w.device.type == 'cpu':
+        return disc_conv_input_grad_reference(g, w, x_shape, stride, dilation, padding)
+    if g.dtype == torch.bfloat16:
+        return disc_conv_input_grad_bf16(g, w, x_shape, stride, dilation, padding)
+    dx = _input_grad_checked('disc_conv_input_grad', g, w, x_shape, stride, dilation, padding,
+                             torch.float32)
     disc_conv_input_grad.launches += 1
+    return dx
+
+
+def disc_conv_input_grad_bf16(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
+                              stride: Pair, dilation: Pair, padding: Pair) -> torch.Tensor:
+    """The input gradient in bf16 (g and w bf16): K4's bf16 dx kernel on
+    CUDA, the plain version on the CPU."""
+    if g.device.type == 'cpu' and w.device.type == 'cpu':
+        return disc_conv_input_grad_reference(g, w, x_shape, stride, dilation, padding)
+    dx = _input_grad_checked('disc_conv_input_grad_bf16', g, w, x_shape, stride, dilation,
+                             padding, torch.bfloat16)
+    disc_conv_input_grad_bf16.launches += 1
     return dx
 
 
 disc_conv_forward.launches = 0
 disc_conv_input_grad.launches = 0
+disc_conv_forward_bf16.launches = 0
+disc_conv_input_grad_bf16.launches = 0
 
 
 def forward_packed(x: torch.Tensor, wk: torch.Tensor, bias: Optional[torch.Tensor],
                    w_shape: Sequence[int], stride: Pair, dilation: Pair,
                    padding: Pair) -> torch.Tensor:
-    """K4's forward launch alone, from weights already packed by
-    :func:`pack_weight_cuda`: what :func:`disc_conv_forward` runs after its
-    checks and the packing. Not counted in ``launches``."""
+    """K4's forward launch alone (in x's dtype), from weights already packed
+    by :func:`pack_weight_cuda`: what :func:`disc_conv_forward` and
+    :func:`disc_conv_forward_bf16` run after their checks and the packing. Not
+    counted in ``launches``."""
     Cout, Cin, KT, KF = w_shape
     sf, dt, (pt, pf) = stride[1], dilation[0], padding
     B, _, T, F_ = x.shape
     y = torch.empty(B, Cout, *out_size(T, F_, KT, KF, sf, dt, pt, pf), device=x.device,
-                    dtype=torch.float32)
+                    dtype=x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.load().encodec_disc_conv_fwd_f32(
+    lib = _build.load()
+    entry = lib.encodec_disc_conv_fwd_bf16 if x.dtype == torch.bfloat16 else \
+        lib.encodec_disc_conv_fwd_f32
+    rc = entry(
         x.data_ptr(), wk.data_ptr(), bias.data_ptr() if bias is not None else None,
         y.data_ptr(), B, Cin, Cout, T, F_, KT, KF, sf, dt, pt, pf, x.device.index,
         ctypes.c_void_p(stream))
@@ -240,15 +337,19 @@ def forward_packed(x: torch.Tensor, wk: torch.Tensor, bias: Optional[torch.Tenso
 def input_grad_packed(g: torch.Tensor, wk: torch.Tensor, w_shape: Sequence[int],
                       x_shape: Sequence[int], stride: Pair, dilation: Pair,
                       padding: Pair) -> torch.Tensor:
-    """K4's input-gradient launch alone, from weights already packed by
-    :func:`pack_weight_cuda` (``dx`` True): what :func:`disc_conv_input_grad`
-    runs after its checks and the packing. Not counted in ``launches``."""
+    """K4's input-gradient launch alone (in g's dtype), from weights already
+    packed by :func:`pack_weight_cuda` (``dx`` True): what the input-gradient
+    entries run after their checks and the packing. Not counted in
+    ``launches``."""
     Cout, Cin, KT, KF = w_shape
     sf, dt, (pt, pf) = stride[1], dilation[0], padding
     B, _, T, F_ = x_shape
-    dx = torch.empty(B, Cin, T, F_, device=g.device, dtype=torch.float32)
+    dx = torch.empty(B, Cin, T, F_, device=g.device, dtype=g.dtype)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = _build.load().encodec_disc_conv_dx_f32(
+    lib = _build.load()
+    entry = lib.encodec_disc_conv_dx_bf16 if g.dtype == torch.bfloat16 else \
+        lib.encodec_disc_conv_dx_f32
+    rc = entry(
         g.data_ptr(), wk.data_ptr(), dx.data_ptr(), B, Cin, Cout, T, F_, KT, KF, sf, dt, pt,
         pf, g.device.index, ctypes.c_void_p(stream))
     _build.check(rc, 'disc_conv input-gradient kernel')
@@ -256,7 +357,8 @@ def input_grad_packed(g: torch.Tensor, wk: torch.Tensor, w_shape: Sequence[int],
 
 
 class _DiscConv(torch.autograd.Function):
-    """K4 forward; backward: K4 dx and cuDNN's weight gradient."""
+    """K4 forward; backward: K4 dx and cuDNN's weight gradient, each in the
+    inputs' dtype."""
 
     @staticmethod
     def forward(ctx, x, w, bias, stride, dilation, padding):
@@ -283,8 +385,9 @@ class _DiscConv(torch.autograd.Function):
 
 def disc_conv(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], stride: Pair,
               dilation: Pair, padding: Pair) -> torch.Tensor:
-    """The trainable conv: plain ``F.conv2d`` (and its autograd) for CPU
-    tensors, kernel K4 forward and dx for CUDA tensors."""
+    """The trainable conv: the plain forward (and its autograd) for CPU
+    tensors, kernel K4 forward and dx for CUDA tensors, in float32 or
+    bfloat16."""
     if x.device.type == 'cpu' and w.device.type == 'cpu':
         return disc_conv_forward_reference(x, w, bias, stride, dilation, padding)
     return _DiscConv.apply(x.contiguous(), w.contiguous(), bias, tuple(stride),

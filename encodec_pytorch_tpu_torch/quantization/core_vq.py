@@ -59,6 +59,7 @@ class ResidualVectorQuantization(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(VectorQuantization(dim, bins) for _ in range(n_q))
         self._tables: Dict[int, tuple] = {}
+        self._inited_seen: Dict[int, Tuple[int, int]] = {}
 
     def embeds(self, n_q: int) -> torch.Tensor:
         """The first ``n_q`` codebooks stacked, ``[n_q, bins, dim]``."""
@@ -79,6 +80,35 @@ class ResidualVectorQuantization(nn.Module):
                 hit = (key, (embed, rvq_kernel.codebook_sq_norms(embed)))
             self._tables[n_q] = hit
         return hit[1]
+
+    def _inited_key(self, k: int) -> Tuple[int, int]:
+        buf = self.layers[k]._codebook.inited
+        return buf.data_ptr(), buf._version
+
+    def known_inited(self, k: int) -> bool:
+        """Whether stage k is known, without reading the device, to have run
+        its k-means init: it was seen inited and its ``inited`` buffer has not
+        been replaced or written since."""
+        return self._inited_seen.get(k) == self._inited_key(k)
+
+    def inited_flags(self, n_q: int) -> List[bool]:
+        """Which of the first ``n_q`` stages have run their k-means init. The
+        stages not :meth:`known_inited` are read from the device in one copy
+        (a host sync); once every stage a step uses is known, reading the
+        flags costs none."""
+        unknown = [k for k in range(n_q) if not self.known_inited(k)]
+        if unknown:
+            values = torch.cat([self.layers[k]._codebook.inited for k in unknown]).cpu()
+            for k, v in zip(unknown, values.tolist()):
+                if v:
+                    self._inited_seen[k] = self._inited_key(k)
+        return [self.known_inited(k) for k in range(n_q)]
+
+    def mark_inited(self, n_q: int) -> None:
+        """Record that the first ``n_q`` stages are inited as their buffers
+        stand (after a training forward over them)."""
+        for k in range(n_q):
+            self._inited_seen[k] = self._inited_key(k)
 
     def states(self) -> List['StageState']:
         return [StageState(l._codebook.inited, l._codebook.cluster_size, l._codebook.embed,

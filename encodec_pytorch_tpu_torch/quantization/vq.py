@@ -56,12 +56,15 @@ class ResidualVectorQuantizer(nn.Module):
         codebook buffers are updated in place (EMA, k-means init, expiry).
 
         Which stages still need their k-means init is read from the buffers
-        in one device-to-host copy."""
+        in one device-to-host copy, only for stages not yet seen inited
+        (:meth:`~..core_vq.ResidualVectorQuantization.inited_flags`): once
+        every stage a step uses has run its init, the forward does not sync."""
         states = self.vq.states()
-        inited = torch.cat([s.inited for s in states[:n_q]]).cpu().tolist()
+        n = min(n_q, len(states))
         quantized, _, penalty, new_states = rvq_forward(
             states, x, n_q, decay=self.decay, kmeans_iters=self.kmeans_iters,
             threshold_ema_dead_code=self.threshold_ema_dead_code, generator=generator,
-            draws=draws, inited=[bool(v) for v in inited])
+            draws=draws, inited=self.vq.inited_flags(n))
         self.vq.set_states(new_states)
+        self.vq.mark_inited(n)
         return quantized, penalty

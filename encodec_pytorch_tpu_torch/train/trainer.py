@@ -7,9 +7,14 @@ Port of ``encodec_pytorch_tpu/train/trainer.py`` for one device, for both
 default sets (``config``: 24 kHz mono; ``config_48k_stereo``: 48 kHz stereo,
 segmented, normalized, ``time_group_norm``). ``distributed.data_parallel``
 over one card is the identity: the batch stays whole on the trainer's
-device. Not in this port yet (each raises or is left out): gradient
-accumulation, the non-finite step guard, bf16, tensorboard and wandb, and
-data parallelism over more than one card.
+device. The step runs in ``tpu.compute_dtype`` (``bfloat16`` in ``config``,
+as the JAX yaml has it: bf16 activations, f32 master weights, f32 in the
+LSTM, the quantizer and the losses; ``float32`` in ``config_48k_stereo``),
+accumulates gradients over ``tpu.grad_accum_steps`` microbatches, and with
+``tpu.skip_nonfinite_steps`` drops a step whose losses or updated state are
+not finite (logged as the JAX trainer logs it). Not in this port yet (each
+raises or is left out): tensorboard and wandb, and data parallelism over
+more than one card.
 
 State (``checkpoint.py``): one file holds the generator (in the reference
 trainer's layout, ``model_state_dict`` with the quantizer under
@@ -44,6 +49,7 @@ from ..config import Config, parse_probability, parse_segment
 from ..data import CustomAudioDataset, DataLoader
 from ..models.model import EncodecModel, from_trainer_layout, to_trainer_layout
 from ..models.msstftd import MultiScaleSTFTDiscriminator
+from ..ops import conv
 from ..utils import save_audio
 from .balancer import Balancer
 from .checkpoint import CheckpointWriter, load_checkpoint
@@ -57,21 +63,21 @@ Device = Union[str, torch.device]
 
 def check_supported(config: Config) -> None:
     """Raise on a config option that the port does not run yet."""
-    tpu = config.get('tpu', Config({}))
-    if str(tpu.get('compute_dtype', 'float32')) != 'float32':
-        raise NotImplementedError('tpu.compute_dtype other than float32 is not ported yet')
-    if int(tpu.get('grad_accum_steps', 1)) != 1:
-        raise NotImplementedError('tpu.grad_accum_steps > 1 is not ported yet')
-    if bool(tpu.get('skip_nonfinite_steps', False)):
-        raise NotImplementedError('tpu.skip_nonfinite_steps is not ported yet')
+    compute_dtype(config)
     dist = config.get('distributed', Config({}))
     if bool(dist.get('data_parallel', False)) and int(dist.get('world_size', 0) or 0) > 1:
         raise NotImplementedError('data parallelism over more than one card is not ported yet')
 
 
+def compute_dtype(config: Config) -> torch.dtype:
+    """``tpu.compute_dtype`` (float32 when absent) as a torch dtype."""
+    return conv.compute_dtype(str(config.get('tpu', Config({})).get('compute_dtype', 'float32')))
+
+
 def build_model_from_config(config: Config, device: Device = 'cuda',
                             generator: Optional[torch.Generator] = None) -> EncodecModel:
-    """The generator, as the JAX package's factory builds it, on ``device``."""
+    """The generator, as the JAX package's factory builds it, in the
+    config's compute dtype, on ``device``."""
     m = config.model
     n_q = m.get('n_q', None)
     model = EncodecModel._get_model(
@@ -79,7 +85,7 @@ def build_model_from_config(config: Config, device: Device = 'cuda',
         model_norm=str(m.norm), audio_normalize=bool(m.audio_normalize),
         segment=parse_segment(m.segment), name=str(m.name), ratios=list(m.ratios),
         n_q=int(n_q) if n_q else None, n_filters=int(m.get('n_filters', 32)),
-        generator=generator)
+        generator=generator, dtype=compute_dtype(config))
     return model.to(device)
 
 
@@ -87,9 +93,10 @@ def build_disc_from_config(config: Config, device: Device = 'cuda',
                            generator: Optional[torch.Generator] = None
                            ) -> MultiScaleSTFTDiscriminator:
     """The discriminator, with ``in_channels = out_channels`` = the audio's
-    channels; ``tpu.disc_im2col`` puts the forward of its F-stride-2 convs on
-    kernel K5, and ``tpu.disc_pallas_v2`` routes its other eligible convs (and
-    every eligible conv's input gradient) to kernel K4."""
+    channels, in the config's compute dtype; ``tpu.disc_im2col`` puts the
+    forward of its F-stride-2 convs on kernel K5, and ``tpu.disc_pallas_v2``
+    routes its other eligible convs (and every eligible conv's input gradient)
+    to kernel K4."""
     m = config.model
     tpu = config.get('tpu', Config({}))
     disc = MultiScaleSTFTDiscriminator(
@@ -97,7 +104,8 @@ def build_disc_from_config(config: Config, device: Device = 'cuda',
         n_ffts=tuple(m.disc_n_ffts), hop_lengths=tuple(m.disc_hop_lengths),
         win_lengths=tuple(m.disc_win_lengths),
         disc_kernel=bool(tpu.get('disc_pallas_v2', True)),
-        disc_im2col=bool(tpu.get('disc_im2col', False)), generator=generator)
+        disc_im2col=bool(tpu.get('disc_im2col', False)), generator=generator,
+        dtype=compute_dtype(config))
     return disc.to(device)
 
 
@@ -108,17 +116,27 @@ class Trainer:
         if self.device.type == 'cuda':
             if not torch.cuda.is_available():
                 raise RuntimeError('no CUDA device; pass device="cpu" to train on the CPU')
-            # f32 means f32: cuDNN would otherwise run the f32 convs in TF32
+            # f32 means f32: cuDNN would otherwise run the f32 convs in TF32,
+            # and cuBLAS may reduce bf16 products at reduced precision
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.config = config
+        tpu = config.get('tpu', Config({}))
+        self.grad_accum_steps = int(tpu.get('grad_accum_steps', 1))
+        self.skip_nonfinite = bool(tpu.get('skip_nonfinite_steps', False))
+        if int(config.datasets.batch_size) % self.grad_accum_steps:
+            raise ValueError(f'batch_size {config.datasets.batch_size} must divide '
+                             f'tpu.grad_accum_steps={self.grad_accum_steps}')
         seed = int(config.common.seed or 0)
         init = torch.Generator().manual_seed(seed)
         self.model = build_model_from_config(config, self.device, init).train()
         self.disc = build_disc_from_config(config, self.device, init).train()
         self.balancer = Balancer(config.balancer.weights.to_dict())
-        self.opt_g = make_optimizer(self.model.parameters())
-        self.opt_d = make_optimizer(self.disc.parameters())
+        # the guard reverts Adam's step counts on the card: capturable keeps them there
+        capturable = self.skip_nonfinite and self.device.type == 'cuda'
+        self.opt_g = make_optimizer(self.model.parameters(), capturable)
+        self.opt_d = make_optimizer(self.disc.parameters(), capturable)
         self.host_gen = torch.Generator().manual_seed(seed + 1)
         self.device_gen = torch.Generator(device=self.device).manual_seed(seed + 2)
         self.train_step = train_step
@@ -168,9 +186,11 @@ class Trainer:
             logger.info('loaded checkpoint %s (step %d), resume from epoch %d', path,
                         self.step, self.resume_epoch)
         logger.info('device %s; %d batches an epoch, %d test batches; generator %d '
-                    'parameters, discriminator %d', self.device, len(self.trainloader),
+                    'parameters, discriminator %d; compute dtype %s, %d microbatch(es) a step, '
+                    'non-finite guard %s', self.device, len(self.trainloader),
                     len(self.testloader), sum(p.numel() for p in self.model.parameters()),
-                    sum(p.numel() for p in self.disc.parameters()))
+                    sum(p.numel() for p in self.disc.parameters()), compute_dtype(config),
+                    self.grad_accum_steps, 'on' if self.skip_nonfinite else 'off')
 
     def _sync(self) -> None:
         if self.device.type == 'cuda':
@@ -258,7 +278,8 @@ class Trainer:
                 self.model, self.disc, self.balancer, self.opt_g, self.opt_d, batch,
                 n_q=self.n_q_table[bw_index], train_disc=disc_allowed and coin,
                 lr_g=self.gen_schedule(self.step), lr_d=self.disc_schedule(self.step),
-                sample_rate=int(cfg.model.sample_rate), generator=self.device_gen)
+                sample_rate=int(cfg.model.sample_rate), generator=self.device_gen,
+                grad_accum_steps=self.grad_accum_steps, skip_nonfinite=self.skip_nonfinite)
             self.step += 1
             self._sync()
             step_ms.append(1000 * (time.perf_counter() - t0))
@@ -271,6 +292,11 @@ class Trainer:
                             avg['loss_g'], avg['loss_w'], float(metrics['lr_g']),
                             float(metrics['lr_d']), avg['loss_disc'],
                             sum(step_ms[-since_log:]) / since_log)
+                if avg.get('skipped_nonfinite', 0) > 0:
+                    logger.warning('dropped %d non-finite step(s) in the last %d steps '
+                                   '(tpu.skip_nonfinite_steps guard)',
+                                   int(round(avg['skipped_nonfinite'] * len(step_ms))),
+                                   len(step_ms))
                 since_log = 0
             self._preempt_point(epoch - 1)
         out: Dict[str, Any] = {k: float(v) / max(len(step_ms), 1) for k, v in acc.items()}

@@ -2,13 +2,15 @@
 """Profile the PyTorch port's GAN training step on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train_step.py [--config NAME] [--seed N] [--steps 2] [--out DIR]
+        [key.path=value ...]
 
 Builds the port's trainer at the full width of a default set, as
-``chip_smoke.py`` does: ``--config config`` (the default;
-``encodec_pytorch_tpu/configs/config.yaml``: f32, batch 12 x 72000 mono, the
+``chip_smoke.py`` does, with any config overrides given (e.g.
+``tpu.compute_dtype=float32``): ``--config config`` (the default;
+``encodec_pytorch_tpu/configs/config.yaml``: bf16, batch 12 x 72000 mono, the
 discriminator's eligible convs on kernel K4, 36 synthetic 3 s clips) or
-``--config config_48k_stereo`` (batch 32 x 48000 stereo, the F-stride-2 convs'
-forward on kernel K5, 96 synthetic 1.25 s clips); runs two warm-up steps
+``--config config_48k_stereo`` (f32, batch 32 x 48000 stereo, the F-stride-2
+convs' forward on kernel K5, 96 synthetic 1.25 s clips); runs two warm-up steps
 (k-means init, cuDNN autotune), then traces ``--steps`` steps with
 ``torch.profiler`` (CPU and CUDA). Each step draws the config's largest n_q
 (24 kbps) and trains the discriminator, so the traced steps do the most work
@@ -17,8 +19,9 @@ a step can do. It prints:
 - the wall time of each traced step (host clock, ending in a synchronize),
   the device's busy time (sum of kernel times) and its idle share;
 - device time by kernel, largest first;
-- the port's own kernels by name (K4, K5, their weight packing, K2's
-  forward): device time a step and share of the device's busy time;
+- the port's own kernels by name (K4, K5, their weight packing, each in f32
+  and bf16, K2's forward): device time a step and share of the device's busy
+  time;
 - for the ``record_function`` ranges that this script wraps around K4's
   forward and dx wrappers, K5's forward wrapper, K2's forward and K2's
   backward (the plain recurrence recomputed and differentiated): the device
@@ -54,6 +57,7 @@ def main() -> int:
     parser.add_argument('--steps', type=int, default=2)
     parser.add_argument('--out', default=str(ROOT / 'build' / 'profile'))
     parser.add_argument('--trace', action='store_true', help='write the chrome trace')
+    parser.add_argument('overrides', nargs='*', help='key.path=value config overrides')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('profile_torch_train_step: no CUDA device', file=sys.stderr)
@@ -87,7 +91,8 @@ def main() -> int:
                                                       lstm._Recurrence.backward))
 
     with tempfile.TemporaryDirectory() as tmp:
-        overrides = chip_smoke.train_overrides(Path(tmp), args.seed, args.config)
+        overrides = chip_smoke.train_overrides(Path(tmp), args.seed, args.config) + list(
+            args.overrides)
         trainer = Trainer(load_config(overrides, name=args.config), 'cuda')
         config = trainer.config
         sr, channels = int(config.model.sample_rate), int(config.model.channels)
@@ -95,7 +100,8 @@ def main() -> int:
             args.seed + 9, int(config.datasets.batch_size), trainer.tensor_cut / sr, sr,
             channels)).cuda()
         n_q = max(trainer.n_q_table)
-        print(f'{args.config}: batch {tuple(batch.shape)}, n_q {n_q}', flush=True)
+        print(f'{args.config} {args.overrides}: batch {tuple(batch.shape)}, n_q {n_q}, '
+              f'{trainer.model.encoder.dtype}', flush=True)
 
         def step():
             t0 = time.perf_counter()
@@ -123,8 +129,12 @@ def main() -> int:
         print(f'  {e.self_device_time_total / 1e3 / args.steps:9.3f} ms  {e.count // args.steps:6d}x'
               f'  {e.key[:110]}')
     own = {'K4 (disc_conv_kernel)': 'disc_conv_kernel',
+           'K4 bf16 (disc_conv_bf16_kernel)': 'disc_conv_bf16_kernel',
            'K5 (disc_im2col_kernel)': 'disc_im2col_kernel',
+           'K5 bf16 (disc_im2col_bf16_kernel)': 'disc_im2col_bf16_kernel',
            'weight packing of K4 and K5 (pack_weight_kernel)': 'pack_weight_kernel',
+           'bf16 weight packing of K4 and K5 (pack_weight_bf16_kernel)':
+               'pack_weight_bf16_kernel',
            'K2 forward (lstm_recurrence_kernel)': 'lstm_recurrence_kernel'}
     for label, name in own.items():
         ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / args.steps

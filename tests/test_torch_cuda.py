@@ -610,6 +610,113 @@ def test_disc_im2col_rejects_what_it_does_not_take(cuda):
         k5.disc_im2col_forward(x, w, None, (1, 2), (1, 4))
 
 
+def _bf16_matches(got, ref):
+    """A bf16 kernel against its plain version: >= 99 % bit-equal, the rest
+    within 1 bf16 ulp or, where the sum nearly cancels, 1e-5 of max|ref|."""
+    agree = chip_smoke.bf16_agreement(torch, got, ref)
+    assert chip_smoke.bf16_ok(agree), agree
+
+
+@pytest.mark.parametrize('B,Cin,Cout,T,F,k,stride,dilation,padding', DISC_CASES)
+def test_disc_conv_bf16_kernel_matches_plain(cuda, B, Cin, Cout, T, F, k, stride, dilation,
+                                             padding):
+    """K4's bf16 forward and dx: the conv before the bias held to the plain
+    version (the f32 conv of the bf16 operands, rounded), the bias added after
+    the rounding bit-exactly, one bf16 launch each and no f32 one."""
+    gen = torch.Generator(device=cuda).manual_seed(T * F + Cin + 1)
+    bf = torch.bfloat16
+    x = torch.randn(B, Cin, T, F, generator=gen, device=cuda).to(bf)
+    w = (torch.randn(Cout, Cin, *k, generator=gen, device=cuda)
+         / (Cin * k[0] * k[1]) ** 0.5).to(bf)
+    b = torch.randn(Cout, generator=gen, device=cuda).to(bf)
+    counts = (dck.disc_conv_forward.launches, dck.disc_conv_forward_bf16.launches)
+    conv = dck.disc_conv_forward(x, w, None, stride, dilation, padding)
+    y = dck.disc_conv_forward(x, w, b, stride, dilation, padding)
+    assert (dck.disc_conv_forward.launches, dck.disc_conv_forward_bf16.launches) == (
+        counts[0], counts[1] + 2)
+    assert y.dtype == bf and torch.equal(y, conv + b.reshape(1, -1, 1, 1))
+    _bf16_matches(conv, dck.disc_conv_forward_reference(x, w, None, stride, dilation, padding))
+    g = torch.randn(y.shape, generator=gen, device=cuda).to(bf)
+    dx = dck.disc_conv_input_grad(g, w, x.shape, stride, dilation, padding)
+    assert dx.dtype == bf
+    _bf16_matches(dx, dck.disc_conv_input_grad_reference(g, w, x.shape, stride, dilation,
+                                                         padding))
+    assert torch.equal(dx, dck.disc_conv_input_grad(g, w, x.shape, stride, dilation, padding))
+
+
+@pytest.mark.parametrize('Cout,Cin,k,sf', [(32, 32, (3, 9), 2), (32, 32, (3, 3), 1),
+                                            (64, 40, (3, 9), 2), (40, 36, (3, 3), 1)])
+def test_bf16_pack_kernels_are_the_plain_packings(cuda, Cout, Cin, k, sf):
+    gen = torch.Generator(device=cuda).manual_seed(Cout + Cin + 1)
+    w = torch.randn(Cout, Cin, *k, generator=gen, device=cuda).to(torch.bfloat16)
+    assert torch.equal(dck.pack_weight_cuda(w, sf, dx=False),
+                       dck.pack_weight_bf16(w.permute(1, 2, 3, 0)[None]))
+    assert torch.equal(dck.pack_weight_cuda(w, sf, dx=True),
+                       dck.pack_weight_bf16(dck.pack_dx_weight(w, sf)))
+    if (Cout, Cin, k) == (32, 32, (3, 9)):
+        assert torch.equal(k5.pack_weight_cuda(w), k5.pack_weight_bf16(w))
+
+
+@pytest.mark.parametrize('B', [1, 3])
+@pytest.mark.parametrize('Fo', [33, 65])
+@pytest.mark.parametrize('dt', [1, 2, 4])
+def test_disc_im2col_bf16_kernel_matches_plain(cuda, B, Fo, dt):
+    """K5's bf16 form at ragged tiles and every T dilation: held to its plain
+    version, bit-equal to K4's bf16 forward (measured on the card), the same
+    bits on a repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * B + Fo + dt + 1)
+    bf = torch.bfloat16
+    x = torch.randn(B, 32, 21, 2 * Fo - 1, generator=gen, device=cuda).to(bf)
+    w = (torch.randn(32, 32, 3, 9, generator=gen, device=cuda) / 30).to(bf)
+    b = torch.randn(32, generator=gen, device=cuda).to(bf)
+    geo = ((dt, 1), (dt, 4))
+    counts = (k5.disc_im2col_forward.launches, k5.disc_im2col_forward_bf16.launches)
+    conv = k5.disc_im2col_forward(x, w, None, *geo)
+    y = k5.disc_im2col_forward(x, w, b, *geo)
+    assert (k5.disc_im2col_forward.launches, k5.disc_im2col_forward_bf16.launches) == (
+        counts[0], counts[1] + 2)
+    assert y.shape == (B, 32, 21, Fo) and torch.equal(y, conv + b.reshape(1, -1, 1, 1))
+    _bf16_matches(conv, k5.disc_im2col_forward_plain(x, w, None, *geo))
+    assert torch.equal(y, dck.disc_conv_forward_bf16(x, w, b, k5.STRIDE, *geo))
+    assert torch.equal(y, k5.disc_im2col_forward(x, w, b, *geo))
+
+
+def test_bf16_autograd_routes_take_the_bf16_kernels(cuda):
+    """A bf16 conv through K4's and K5's trainable routes launches the bf16
+    kernels (forward and dx) and never their f32 forms; the gradients reach
+    f32 master weights through the cast, finite."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(2, 32, 13, 41, generator=gen, device=cuda, requires_grad=True)
+    w = (torch.randn(32, 32, 3, 9, generator=gen, device=cuda) / 30).requires_grad_()
+    b = torch.randn(32, generator=gen, device=cuda, requires_grad=True)
+    entries = (dck.disc_conv_forward, dck.disc_conv_input_grad, k5.disc_im2col_forward,
+               dck.disc_conv_forward_bf16, dck.disc_conv_input_grad_bf16,
+               k5.disc_im2col_forward_bf16)
+    before = [fn.launches for fn in entries]
+    bf = torch.bfloat16
+    y1 = dck.disc_conv(x.to(bf), w.to(bf), b.to(bf), (1, 2), (1, 1), (1, 4))
+    y2 = k5.disc_im2col(x.to(bf), w.to(bf), b.to(bf), (2, 1), (2, 4))
+    grads = torch.autograd.grad((y1.float().square().mean() + y2.float().square().mean()),
+                                (x, w, b))
+    assert [fn.launches - n for fn, n in zip(entries, before)] == [0, 0, 0, 1, 2, 1]
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads)
+
+
+def test_bf16_wrappers_reject_other_dtypes(cuda):
+    x = torch.randn(1, 32, 5, 20, device=cuda)
+    w = torch.randn(32, 32, 3, 9, device=cuda)
+    with pytest.raises(TypeError):
+        dck.disc_conv_forward(x.half(), w.half(), None, (1, 2), (1, 1), (1, 4))
+    with pytest.raises(TypeError):         # one dtype for all inputs
+        dck.disc_conv_forward(x.bfloat16(), w, None, (1, 2), (1, 1), (1, 4))
+    with pytest.raises(TypeError):
+        dck.disc_conv_forward_bf16(x, w, None, (1, 2), (1, 1), (1, 4))
+    with pytest.raises(TypeError):
+        k5.disc_im2col_forward(x.bfloat16(), w, None, (1, 1), (1, 4))
+    with pytest.raises(TypeError):
+        k5.disc_im2col_forward_bf16(x.half(), w.half(), None, (1, 1), (1, 4))
+
+
 def test_segmented_model_on_the_card(cuda):
     """A 48 kHz-architecture model (``time_group_norm``) on the card: its
     resblocks never take K3, and its codes and audio match the same model on
@@ -648,9 +755,10 @@ def test_lstm_autograd_matches_plain(cuda):
 
 
 def _cuda_trainer(tmp_path, *overrides):
-    """A tiny trainer on the card (generator n_filters 4, n_q 4, weight norm:
-    its eval forward runs K1, K2 and K3; discriminator at its full 32
-    filters, so that its eligible convs run K4)."""
+    """A tiny trainer on the card (generator n_filters 4, n_q 4, weight norm,
+    pinned to float32: its eval forward runs K1, K2 and K3, which bf16
+    blocks do not take; discriminator at its full 32 filters, so that its
+    eligible convs run K4)."""
     import numpy as np
 
     from encodec_pytorch_tpu_torch.config import load_config
@@ -668,7 +776,22 @@ def _cuda_trainer(tmp_path, *overrides):
         'datasets.batch_size=2', 'common.max_epoch=2', 'model.n_filters=4', 'model.n_q=4',
         'model.disc_n_ffts=[512,256]', 'model.disc_hop_lengths=[128,64]',
         'model.disc_win_lengths=[512,256]', 'lr_scheduler.warmup_epoch=0',
-        f'checkpoint.save_folder={tmp_path}/', *overrides]), device='cuda')
+        'tpu.compute_dtype=float32', f'checkpoint.save_folder={tmp_path}/', *overrides]),
+        device='cuda')
+
+
+def test_guarded_accumulating_trainer_on_the_card(cuda, tmp_path):
+    """The trainer with ``tpu.skip_nonfinite_steps`` and
+    ``tpu.grad_accum_steps=2`` on the card, in bf16: Adam keeps its step
+    counts on the card (``capturable``, so the guard reverts them without a
+    sync), an epoch trains, and no step is dropped."""
+    trainer = _cuda_trainer(tmp_path, 'tpu.compute_dtype=bfloat16',
+                            'tpu.skip_nonfinite_steps=true', 'tpu.grad_accum_steps=2')
+    summary = trainer.train_one_epoch(1)
+    assert summary['steps'] == 2 and summary['skipped_nonfinite'] == 0.0
+    assert trainer.model.encoder.dtype == torch.bfloat16
+    for opt in (trainer.opt_g, trainer.opt_d):
+        assert all(s['step'].is_cuda and float(s['step']) == 2 for s in opt.state.values())
 
 
 def test_checkpoint_round_trip_and_resume_on_the_card(cuda, tmp_path):

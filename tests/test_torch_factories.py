@@ -131,6 +131,8 @@ def test_encodec_bw_matches_jax(tmp_path, bandwidth):
 
 
 def _trainer(tmp_path, *overrides):
+    """A tiny trainer on the CPU, pinned to float32: its generator is held
+    bit-exactly to the same weights loaded into the float32 factories."""
     rng = np.random.default_rng(6)
     paths = []
     for i in range(2):
@@ -142,8 +144,8 @@ def _trainer(tmp_path, *overrides):
         f'datasets.test_csv_path={tmp_path / "data.csv"}', 'datasets.tensor_cut=3200',
         'datasets.batch_size=2', 'model.n_q=4', 'model.filters=4', 'model.disc_n_ffts=[256]',
         'model.disc_hop_lengths=[64]', 'model.disc_win_lengths=[256]',
-        f'checkpoint.save_folder={tmp_path}/', 'tpu.async_checkpoint=False', *overrides]),
-        device='cpu')
+        f'checkpoint.save_folder={tmp_path}/', 'tpu.async_checkpoint=False',
+        'tpu.compute_dtype=float32', *overrides]), device='cpu')
 
 
 def test_trainer_checkpoint_loads_into_my_encodec(tmp_path):

@@ -331,10 +331,11 @@ def test_whole_train_step_matches_jax(jax_step):
 
 
 def test_train_cli_cpu(tmp_path, monkeypatch):
-    """The port's CLI: one epoch of two steps on the CPU at a tiny config,
-    finite losses, both models trained; without a card, the default device
-    is refused, an option the port does not run yet raises, and so does a
-    resume without a checkpoint path."""
+    """The port's CLI: one epoch of two steps on the CPU at a tiny config (in
+    the default set's bf16), finite losses, both models trained; without a
+    card, the default device is refused, an option the port does not run yet
+    (data parallelism over two cards) raises, and so does a resume without a
+    checkpoint path."""
     rng = np.random.default_rng(9)
     paths = []
     for i in range(4):
@@ -361,6 +362,7 @@ def test_train_cli_cpu(tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         train_cli.main(tiny)
     with pytest.raises(NotImplementedError, match='not ported yet'):
-        train_cli.main(['--device', 'cpu', *tiny, 'tpu.compute_dtype=bfloat16'])
+        train_cli.main(['--device', 'cpu', *tiny, 'distributed.data_parallel=true',
+                        'distributed.world_size=2'])
     with pytest.raises(ValueError, match='checkpoint_path'):
         train_cli.main(['--device', 'cpu', *tiny, 'checkpoint.resume=True'])
