@@ -21,8 +21,9 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    codes must be >= 99 % identical, and every row whose codes differ must
    first differ at a near-tie (rule in ``rvq_first_differences``). Each shape
    logs its launch (the cluster size, rows a tile and CTAs) and, beside the
-   CUDA-event time of a wrapper call, the kernel's own device time from
-   ``torch.profiler`` (at the serving shapes the former is mostly host).
+   CUDA-event time of a wrapper call, the call's device time (``device_ms``:
+   calls queued behind a sleeping kernel; at the serving shapes the former is
+   mostly host).
    K2 (LSTM recurrence) at H = C = 512 from a zero state at (T, B) in
    (750, 1), (750, 16), (750, 32), (150, 32), and with a carried state
    (random h0 and c0) at (T 4, B 16), the mux tick's shape, and (T 750, B 1);
@@ -42,7 +43,11 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    by stage, the latent's relative error, each stage's residual, and decode
    relative RMS < 0.15 and SNR; with random-normal codebooks (the recipe of
    ``tests/test_bf16.py``) >= 95 % of codes equal and relative RMS < 0.15.
-   K1 and K2 launched, K3 not (bf16 blocks take the conv sequence).
+   K1 and K2 launched, K3 not (bf16 blocks take the conv sequence). Then
+   the bf16 model through a ``StreamingServer`` (2 slots, 4-hop chunks):
+   two streams of 224 hops at once (a batched step must carry both slots),
+   codes >= 99 % equal to the offline bf16 encode,
+   audio >= 20 dB SNR against the offline bf16 decode, K3 not launched.
 4. Checks of that output: header (nc 8, al 240000), length, finite values, the
    file's codes equal the in-process encode, the CLI's wav equals the decode.
    Then the same clip through the plain versions: >= 99 % identical codes and
@@ -84,8 +89,8 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    encode and decode step loops and the host route's teacher-forced chain
    under ``torch.cuda.set_sync_debug_mode('error')``; K6 at the main path's
    pdfs against its plain version and the C++ coder: bytes and CDFs equal,
-   a decode step's time by CUDA events over 750 launches and by
-   ``torch.profiler``, a 750-step encode launch (the codec encodes 256 steps
+   a decode step's time by CUDA events over 750 launches and on the device
+   (``device_ms``), a 750-step encode launch (the codec encodes 256 steps
    a launch), both plain versions'
    times, the bound; the LM step's ms.
 7. K4 (discriminator conv, 3xTF32 on the tensor cores) against its plain
@@ -146,8 +151,8 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     the plain packing, and the trainable route's dx and dW (K4's dx, cuDNN's
     dW) within 1e-5 of ``F.conv2d``'s autograd. At each shape: median times
     by CUDA events of the wrapper, the kernel alone, the packing, the plain
-    version, cuDNN and K4's forward (the in-house yardstick), the kernel's
-    device time from ``torch.profiler``, and two bounds (3xTF32, f32).
+    version, cuDNN and K4's forward (the in-house yardstick), the call's
+    device time (``device_ms``), and two bounds (3xTF32, f32).
 13. The 48 kHz codec CLI (``-q``), in process, at full ``encodec_48khz`` width
     with seeded weights: a 10 s stereo wav to ``.ecdc`` and back at 6 kbps;
     header (``m encodec_48khz``, ``al 480000``, ``nc 4``), 11 frames each with
@@ -174,8 +179,10 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     codebooks changed; ms per step and peak memory; then phase 9's
     kernel-vs-plain step at this config.
 16. K4 in bf16 (``disc_conv_forward_bf16``, ``disc_conv_input_grad_bf16``:
-    ``mma.sync`` m16n8k16 bf16, f32 sums, bf16 out, the bias added after the
-    rounding) at the shapes of a bf16 discriminator call of both configs (24
+    ``wgmma`` m64n32k16 bf16 with both operands in shared memory, a producer
+    warpgroup pair laying the window out channels-last, f32 sums, bf16 out,
+    the bias added after the rounding) at the shapes of a bf16 discriminator
+    call of both configs (24
     kHz: the 12 eligible convs, forward and dx; 48 kHz: conv_4's 3 forwards
     and the 12 dx): against the plain version >= 99 % bit-equal and the conv
     before the bias within 1 bf16 ulp, or 1e-5 of max|ref| where the sum
@@ -183,7 +190,10 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     packing bit-equal to the plain one; the same bits on a repeat. Times by
     CUDA events (wrapper, kernel alone) and device time, beside the plain
     version, cuDNN in bf16 (``F.conv2d``, ``conv2d_input``), K4's f32 form and
-    the bound at the bf16 peak (989 TFLOP/s).
+    the bound at the bf16 peak (989 TFLOP/s). Then the 24 kHz discriminator
+    at ``model.filters=64``, whose K4 bf16 weights do not stay in shared
+    memory: its 12 eligible convs, forward and dx, by the same bf16 rule,
+    timed beside cuDNN in bf16.
 17. K5 in bf16 (``disc_im2col_forward_bf16``: ``wgmma`` m64n32k16 bf16) at the
     9 F-stride-2 convs of a bf16 48 kHz discriminator call, the same checks,
     beside cuDNN in bf16, K4's bf16 forward (and whether they agree bit for
@@ -200,9 +210,12 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     ``torch.cuda.set_sync_debug_mode('error')`` (no host sync).
 
 With ``--before DIR`` (another checkout of the port, e.g. the parent commit
-unpacked with ``git archive``), phases 2, 5 and 12 also run that checkout's
-K1, K3 and K5 on the same inputs: its time beside the kernel's, and whether
-the codes and outputs are bit-equal to it (for K5, how far they differ).
+unpacked with ``git archive``), phases 2, 5, 12 and 16 also run that
+checkout's K1, K3, K5 and K4 bf16 on the same inputs: its time beside the
+kernel's (K4 bf16 in turns, parent, this tree, this tree, parent, and also
+on the device), and whether the codes and outputs are bit-equal to it (for
+K5, how far they differ; for K4 bf16, the share of bit-equal outputs);
+phases 7 and 11 hold K4's f32 outputs bit-equal to that checkout's.
 
 Output: one line per measurement (each phase's start with the seconds since
 the script started), then a JSON line with each kernel's numbers (launches:
@@ -314,28 +327,47 @@ def cuda_ms(torch, fn, runs=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel: str, runs=20, tries=3):
-    """Mean device milliseconds a call of ``fn`` spends in kernels whose name
-    holds ``kernel``, by ``torch.profiler`` (CUPTI); None if no try saw any.
-    Unlike ``cuda_ms`` it leaves out the host's launch cost."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, fn, runs=20, tries=3):
+    """Mean device milliseconds of a call of ``fn``: CUDA events around
+    ``runs`` calls queued behind a sleeping kernel, so that the card starts
+    them only once the host has queued them all and the host's launch cost
+    is hidden. It counts every kernel a call launches and the gaps between
+    back-to-back launches. None if at each of ``tries`` ever longer sleeps
+    the card reached the calls before the host had queued them (a call that
+    waits for the card, or a full launch queue). ``torch.profiler`` is not
+    used: minutes into a process it drops some of a call's kernels."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    cycles = 50_000_000
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / runs
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / runs
+        cycles *= 4
     return None
 
 
+def json_safe(v):
+    """``v`` with every NaN (a total over a time that was not measured) as
+    None, so that the printed line is strict JSON."""
+    if isinstance(v, dict):
+        return {k: json_safe(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [json_safe(x) for x in v]
+    return None if isinstance(v, float) and v != v else v
+
+
 def fmt_ms(v) -> str:
-    return 'not measured' if v is None else f'{v:.4f} ms'
+    return 'not measured' if v is None or v != v else f'{v:.4f} ms'
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -424,7 +456,7 @@ def k1_phase(torch, rvq_kernel, gen, before=None):
         ms = cuda_ms(torch, lambda: rvq_kernel.rvq_encode(x, embed, esq))
         plain_ms = cuda_ms(torch, lambda: rvq_kernel.rvq_encode_reference(x, embed))
         b_ms, b_by = bound_ms(2.0 * M * N * D * K, 4.0 * (M * D + K * N * D + K * M))
-        dev_ms = device_ms(torch, lambda: rvq_kernel.rvq_encode(x, embed, esq), 'rvq_cascade')
+        dev_ms = device_ms(torch, lambda: rvq_kernel.rvq_encode(x, embed, esq))
         cfg = rvq_kernel.launch_config(M, N)
         ctas = -(-M // cfg['rows_per_tile']) * cfg['cluster']
         log(f'K1 rvq_encode M={M} n_q={K} N={N} D={D}: identical codes {same:.6f}, '
@@ -444,7 +476,7 @@ def k1_phase(torch, rvq_kernel, gen, before=None):
             torch.cuda.synchronize()
             old_call = lambda: before.rvq_kernel.rvq_encode(x, embed)
             entry.update(before_ms=cuda_ms(torch, old_call),
-                         before_device_ms=device_ms(torch, old_call, 'rvq_cascade'),
+                         before_device_ms=device_ms(torch, old_call),
                          equal_to_before=bool(torch.equal(codes, old)))
             log(f'K1 M={M} n_q={K}: the earlier kernel (--before) {entry["before_ms"]:.4f} ms '
                 f'(on the device {fmt_ms(entry["before_device_ms"])}), codes bit-equal to it: '
@@ -584,7 +616,7 @@ def k3_phase(torch, seed, ckpt: Path, before=None):
         B, C, T = x.shape
         flops = 6.0 * C * C * B * T
         b_ms, b_by = bound_ms(flops, 4.0 * (2 * B * C * T + sum(t.numel() for t in w)))
-        dev_ms = device_ms(torch, lambda: rk.resblock(x, *w, **kw), 'resblock_kernel')
+        dev_ms = device_ms(torch, lambda: rk.resblock(x, *w, **kw))
         cfg = rk.launch_config(C, w[0].shape[0])
         units = -(-T // cfg['tile']) * B
         log(f'K3 resblock {name} x {tuple(x.shape)}: max |d| {err:.3e} ({rel:.2e} of max), '
@@ -601,7 +633,7 @@ def k3_phase(torch, seed, ckpt: Path, before=None):
             torch.cuda.synchronize()
             old_call = lambda: before.resblock_kernel.resblock(x, *w, **kw)
             entry.update(before_ms=cuda_ms(torch, old_call),
-                         before_device_ms=device_ms(torch, old_call, 'resblock_kernel'),
+                         before_device_ms=device_ms(torch, old_call),
                          equal_to_before=bool(torch.equal(got, old)))
             log(f'K3 {name} x {tuple(x.shape)}: the earlier kernel (--before) '
                 f'{entry["before_ms"]:.4f} ms (on the device '
@@ -646,7 +678,8 @@ def load_before(path: Path):
     sys.modules['before_port'] = module
     spec.loader.exec_module(module)
     ops = importlib.import_module('before_port.ops')
-    for name in ('_build', 'rvq_kernel', 'resblock_kernel', 'disc_im2col_kernel'):
+    for name in ('_build', 'rvq_kernel', 'resblock_kernel', 'disc_im2col_kernel',
+                 'disc_conv_kernel'):
         importlib.import_module(f'before_port.ops.{name}')
     return ops
 
@@ -1003,11 +1036,12 @@ def k4_bounds(flops: float, nbytes: float):
             1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
 
 
-def k4_phase(torch, seed, config_name: str = 'config'):
+def k4_phase(torch, seed, config_name: str = 'config', before=None):
     """K4 against cuDNN (TF32 off) at the shapes one discriminator call of the
     training config gives it: every conv K4 takes runs forward and dx, and at
     48 kHz, where K5 takes conv_1..conv_3's forward, those convs run K4's dx
-    only. Returns the forward and dx summaries over the call."""
+    only. With ``before`` (another checkout), its K4 must give the same bits.
+    Returns the forward and dx summaries over the call."""
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
 
@@ -1046,6 +1080,10 @@ def k4_phase(torch, seed, config_name: str = 'config'):
                      f'{f_kern:.4f} ms, weight packing {f_pack:.4f} ms), cuDNN {f_lib:.4f} ms, '
                      f'bound {f_bounds[0]:.4f} ms (3xTF32) / {f_bounds[1]:.4f} ms (f32);')
             check(rf <= K4_TOL_REL, f'K4 forward disagrees with cuDNN at x {tuple(x.shape)}: {rf}')
+            if before is not None:
+                same = torch.equal(y, before.disc_conv_kernel.disc_conv_forward(x, w, b, *geo))
+                line += f' bit-equal to the earlier kernel: {same};'
+                check(same, f'K4 forward differs from the earlier kernel at x {tuple(x.shape)}')
             err_f = max(err_f, ef)
             for k, v in zip(keys[:6], (f_ms, f_lib, *f_bounds, f_kern, f_pack)):
                 tot[k] += v
@@ -1069,6 +1107,12 @@ def k4_phase(torch, seed, config_name: str = 'config'):
             f'{d_kern:.4f} ms, weight packing {d_pack:.4f} ms), cuDNN {d_lib:.4f} ms, bound '
             f'{d_bounds[0]:.4f} ms (3xTF32) / {d_bounds[1]:.4f} ms (f32)')
         check(rd <= K4_TOL_REL, f'K4 dx disagrees with cuDNN at x {tuple(x.shape)}: {rd}')
+        if before is not None:
+            same = torch.equal(dx, before.disc_conv_kernel.disc_conv_input_grad(g, w, x.shape,
+                                                                                 *geo))
+            log(f'K4 {config_name} x {tuple(x.shape)}: dx bit-equal to the earlier kernel: '
+                f'{same}')
+            check(same, f'K4 dx differs from the earlier kernel at x {tuple(x.shape)}')
         err_d = max(err_d, ed)
         for k, v in zip(keys[6:], (d_ms, d_lib, *d_bounds, d_kern, d_pack)):
             tot[k] += v
@@ -1133,8 +1177,7 @@ def k5_phase(torch, seed, before=None):
         del got, ref, xr, wr, g
         row = dict(x=list(x.shape), dilation=list(m.dilation))
         row['ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward(x, w, b, *geo))
-        row['device_ms'] = device_ms(torch, lambda: k5.disc_im2col_forward(x, w, b, *geo),
-                                     'disc_im2col_kernel')
+        row['device_ms'] = device_ms(torch, lambda: k5.disc_im2col_forward(x, w, b, *geo))
         row['kernel_ms'] = cuda_ms(torch, lambda: k5.forward_packed(x, wk, b, *geo))
         row['packing_ms'] = cuda_ms(torch, lambda: k5.pack_weight_cuda(w))
         row['plain_ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward_plain(x, w, b, *geo),
@@ -2035,7 +2078,7 @@ def lm_codec_phase(torch, seed, tmp: Path):
           f'host {len(host_stream)}')
 
     events_ms = cuda_ms(torch, lambda: decode_all(k6.lm_coder, T), runs=3, warmup=1) / T
-    dev_ms = device_ms(torch, lambda: decode_all(k6.lm_coder, T), 'lm_coder_kernel', runs=2)
+    dev_ms = device_ms(torch, lambda: decode_all(k6.lm_coder, T), runs=2)
     dev_ms = None if dev_ms is None else dev_ms / T
     enc_state, enc_buf = k6.init_state('cuda'), torch.zeros_like(bits_in)
 
@@ -2045,7 +2088,7 @@ def lm_codec_phase(torch, seed, tmp: Path):
         k6.lm_coder(pdfs, syms, enc_state, enc_buf, decode=False, finish=True)
 
     enc_ms = cuda_ms(torch, encode_launch, runs=5, warmup=1)
-    enc_dev_ms = device_ms(torch, encode_launch, 'lm_coder_kernel', runs=3)
+    enc_dev_ms = device_ms(torch, encode_launch, runs=3)
     bits_step = n_bits / T
     step_bytes = K * 1024 * 4 + K * 4 + 2 * 8 * k6.STATE_SIZE + bits_step / 8
     b_ms, b_by = bound_ms(7 * K * 1024, step_bytes)
@@ -2222,24 +2265,28 @@ def record_disc_convs(torch, config, seed: int, clip_seed: int, want):
     return calls
 
 
-def k4_bf16_phase(torch, seed):
+def k4_bf16_phase(torch, seed, before=None):
     """K4's bf16 forward and dx against their plain versions, cuDNN in bf16
     and K4's f32 form at the shapes of one bf16 discriminator call of each
     config: 24 kHz (the default set, bf16): the 12 eligible convs, forward and
     dx; 48 kHz (``tpu.compute_dtype=bfloat16``): conv_4's 3 forwards (K5
-    takes conv_1..3's) and the 12 convs' dx. Returns the forward's and the
-    dx's summaries over both calls."""
+    takes conv_1..3's) and the 12 convs' dx. With ``before`` (another
+    checkout), its K4 bf16 on the same inputs: its time by events and on the
+    device, and the share of outputs bit-equal to it. Returns the forward's
+    and the dx's summaries over both calls."""
     import torch.nn.functional as F
 
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
 
     keys = ('ms', 'device_ms', 'kernel_ms', 'plain_ms', 'library_ms', 'f32_ms', 'bound_ms',
-            'gflop')
+            'gflop') + (('before_ms', 'before_device_ms') if before is not None else ())
     tot = {p: {k: 0.0 for k in keys} for p in ('fwd', 'dx')}
     worst = {'fwd': 0.0, 'dx': 0.0}
+    equal_before = {'fwd': [], 'dx': []}
     shapes = {'fwd': [], 'dx': []}
     gen = torch.Generator(device='cuda').manual_seed(seed + 30)
+    bdck = before.disc_conv_kernel if before is not None else None
     for name, overrides in (('config', []), ('config_48k_stereo', ['tpu.compute_dtype=bfloat16'])):
         config = load_config(overrides, name=name)
         calls = record_disc_convs(
@@ -2264,13 +2311,16 @@ def k4_bf16_phase(torch, seed):
                                            dck.disc_conv_forward_reference(x, w, None, *geo))
                     epilogue = bool(torch.equal(got, conv + b.reshape(1, -1, 1, 1)))
                     wk = dck.pack_weight_cuda(w, m.stride[1], dx=False)
-                    packed = torch.equal(wk, dck.pack_weight_bf16(w.permute(1, 2, 3, 0)[None]))
+                    packed = torch.equal(wk, dck.pack_weight_bf16(w.permute(1, 2, 3, 0)[None],
+                                                                  m.stride[1]))
                     kern = lambda: dck.forward_packed(x, wk, b, w.shape, *geo)
                     plain = lambda: dck.disc_conv_forward_reference(x, w, b, *geo)
                     lib = lambda: F.conv2d(x, w, b, stride=m.stride, padding=m.padding,
                                            dilation=m.dilation)
                     x32, w32, b32 = x.float(), w.float(), b.float()
                     f32 = lambda: dck.disc_conv_forward(x32, w32, b32, *geo)
+                    parent = ((lambda: bdck.disc_conv_forward_bf16(x, w, b, *geo))
+                              if bdck else None)
                     nbytes = 2.0 * (x.numel() + w.numel() + b.numel() + y_ref.numel())
                 else:
                     run = lambda: dck.disc_conv_input_grad_bf16(g, w, x.shape, *geo)
@@ -2279,7 +2329,8 @@ def k4_bf16_phase(torch, seed):
                     agree, epilogue = bf16_agreement(torch, got, ref), True
                     wk = dck.pack_weight_cuda(w, m.stride[1], dx=True)
                     packed = torch.equal(wk, dck.pack_weight_bf16(dck.pack_dx_weight(w,
-                                                                                     m.stride[1])))
+                                                                                     m.stride[1]),
+                                                                  1))
                     kern = lambda: dck.input_grad_packed(g, wk, w.shape, x.shape, *geo)
                     plain = lambda: dck.disc_conv_input_grad_reference(g, w, x.shape, *geo)
                     lib = lambda: torch.nn.grad.conv2d_input(x.shape, w, g, stride=m.stride,
@@ -2287,13 +2338,23 @@ def k4_bf16_phase(torch, seed):
                                                              dilation=m.dilation)
                     g32, w32 = g.float(), w.float()
                     f32 = lambda: dck.disc_conv_input_grad(g32, w32, x.shape, *geo)
+                    parent = ((lambda: bdck.disc_conv_input_grad_bf16(g, w, x.shape, *geo))
+                              if bdck else None)
                     nbytes = 2.0 * (g.numel() + w.numel() + x.numel())
                 again = bool(torch.equal(got, run()))
                 whole = bf16_agreement(torch, got, ref)
                 row = dict(config=name, x=list(x.shape), dilation=list(m.dilation),
                            stride=list(m.stride))
-                row['ms'] = cuda_ms(torch, run)
-                row['device_ms'] = device_ms(torch, run, 'disc_conv_bf16_kernel')
+                if parent is not None:   # in turns: parent, this tree, this tree, parent
+                    ms = [cuda_ms(torch, f) for f in (parent, run, run, parent)]
+                    row['ms'], row['before_ms'] = (ms[1] + ms[2]) / 2, (ms[0] + ms[3]) / 2
+                    row['before_device_ms'] = device_ms(torch, parent)
+                    row['equal_before'] = float((parent().view(torch.int16)
+                                                 == got.view(torch.int16)).float().mean())
+                    equal_before[p].append(row['equal_before'])
+                else:
+                    row['ms'] = cuda_ms(torch, run)
+                row['device_ms'] = device_ms(torch, run)
                 row['kernel_ms'] = cuda_ms(torch, kern)
                 row['plain_ms'] = cuda_ms(torch, plain)
                 row['library_ms'] = cuda_ms(torch, lib)
@@ -2309,7 +2370,10 @@ def k4_bf16_phase(torch, seed):
                     f'= plain: {packed}; repeat bit-equal: {again}; wrapper {row["ms"]:.4f} ms '
                     f'(on the device {fmt_ms(row["device_ms"])}; kernel {row["kernel_ms"]:.4f} '
                     f'ms), plain {row["plain_ms"]:.4f} ms, cuDNN bf16 {row["library_ms"]:.4f} '
-                    f'ms, K4 f32 {row["f32_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms (bf16)')
+                    f'ms, K4 f32 {row["f32_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms (bf16)'
+                    + (f'; the earlier kernel {row["before_ms"]:.4f} ms (on the device '
+                       f'{fmt_ms(row["before_device_ms"])}), bit-equal to it '
+                       f'{row["equal_before"]:.6f}' if parent is not None else ''))
                 check(bf16_ok(agree) and whole['equal'] >= BF16_EQUAL_SHARE and epilogue
                       and packed and again,
                       f'K4 bf16 {p} disagrees with its plain version at x {tuple(x.shape)}')
@@ -2319,6 +2383,7 @@ def k4_bf16_phase(torch, seed):
                 shapes[p].append(row)
                 del got, ref
             del y_ref, g
+    wide = k4_bf16_wide(torch, seed)
     out = []
     for p in ('fwd', 'dx'):
         t = tot[p]
@@ -2326,9 +2391,68 @@ def k4_bf16_phase(torch, seed):
             f'{t["gflop"]:.1f} GFLOP): wrapper {t["ms"]:.3f} ms (on the device '
             f'{fmt_ms(t["device_ms"])}; kernel {t["kernel_ms"]:.3f} ms), plain '
             f'{t["plain_ms"]:.3f} ms, cuDNN bf16 {t["library_ms"]:.3f} ms, K4 f32 '
-            f'{t["f32_ms"]:.3f} ms, bound {t["bound_ms"]:.3f} ms')
+            f'{t["f32_ms"]:.3f} ms, bound {t["bound_ms"]:.3f} ms'
+            + (f'; the earlier kernel {t["before_ms"]:.3f} ms (on the device '
+               f'{fmt_ms(t["before_device_ms"])}), bit-equal to it {min(equal_before[p]):.6f} '
+               f'at the worst shape' if before is not None else ''))
         out.append(dict(max_abs_err=worst[p], **{k: v for k, v in t.items() if k != 'gflop'},
-                        bound_by='operations', shapes=shapes[p]))
+                        bound_by='operations', shapes=shapes[p], wide=wide[p]))
+    return out
+
+
+def k4_bf16_wide(torch, seed) -> dict:
+    """K4 bf16 where a CTA's weights do not all stay in shared memory, so that
+    they stream chunk by chunk beside the input: the 24 kHz discriminator in
+    bf16 at ``model.filters=64``, its 12 eligible convs forward and dx, held
+    to their plain versions by the bf16 rule (the bias after the rounding
+    bit-exact, a repeat bit-equal) and timed beside cuDNN bf16. Returns
+    per pass the wrapper's and cuDNN's ms over the 12 convs."""
+    import torch.nn.functional as F
+
+    from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
+    config = load_config(['model.filters=64'], name='config')
+    calls = record_disc_convs(torch, config, seed, seed + 32,
+                              lambda m: getattr(m, 'uses_kernel', False))
+    check(len(calls) == 12 and all(w.shape[:2] == (64, 64) for _, w, _, _ in calls),
+          f'expected 12 eligible 64-channel convs, found {len(calls)}')
+    gen = torch.Generator(device='cuda').manual_seed(seed + 33)
+    out = {p: dict(ms=0.0, library_ms=0.0, equal=1.0, max_abs_err=0.0) for p in ('fwd', 'dx')}
+    for x, w, b, m in calls:
+        geo = (m.stride, m.dilation, m.padding)
+        conv = dck.disc_conv_forward_bf16(x, w, None, *geo)
+        y = dck.disc_conv_forward_bf16(x, w, b, *geo)
+        g = torch.randn(y.shape, generator=gen, device='cuda').to(torch.bfloat16)
+        dx = dck.disc_conv_input_grad_bf16(g, w, x.shape, *geo)
+        results = {
+            'fwd': (conv, dck.disc_conv_forward_reference(x, w, None, *geo),
+                    torch.equal(y, conv + b.reshape(1, -1, 1, 1))
+                    and torch.equal(y, dck.disc_conv_forward_bf16(x, w, b, *geo)),
+                    lambda: dck.disc_conv_forward_bf16(x, w, b, *geo),
+                    lambda: F.conv2d(x, w, b, stride=m.stride, padding=m.padding,
+                                     dilation=m.dilation)),
+            'dx': (dx, dck.disc_conv_input_grad_reference(g, w, x.shape, *geo),
+                   torch.equal(dx, dck.disc_conv_input_grad_bf16(g, w, x.shape, *geo)),
+                   lambda: dck.disc_conv_input_grad_bf16(g, w, x.shape, *geo),
+                   lambda: torch.nn.grad.conv2d_input(x.shape, w, g, stride=m.stride,
+                                                      padding=m.padding, dilation=m.dilation))}
+        for p, (got, ref, exact, run, lib) in results.items():
+            agree = bf16_agreement(torch, got, ref)
+            ms, lib_ms = cuda_ms(torch, run), cuda_ms(torch, lib)
+            log(f'K4 bf16 {p} at 64 channels (weights streamed) x {tuple(x.shape)} dilation '
+                f'{m.dilation}: vs plain {fmt_agree(agree)}; bias after the rounding and a '
+                f'repeat bit-exact: {exact}; wrapper {ms:.4f} ms, cuDNN bf16 {lib_ms:.4f} ms')
+            check(bf16_ok(agree) and exact,
+                  f'K4 bf16 {p} at 64 channels disagrees with its plain version at x '
+                  f'{tuple(x.shape)}')
+            o = out[p]
+            o.update(ms=o['ms'] + ms, library_ms=o['library_ms'] + lib_ms,
+                     equal=min(o['equal'], agree['equal']),
+                     max_abs_err=max(o['max_abs_err'], agree['max_abs']))
+        del conv, y, g, dx, results
+    for p, o in out.items():
+        log(f'K4 bf16 {p} at 64 channels over the 12 convs: wrapper {o["ms"]:.3f} ms, cuDNN '
+            f'bf16 {o["library_ms"]:.3f} ms, bit-equal to plain >= {o["equal"]:.6f}')
     return out
 
 
@@ -2369,7 +2493,7 @@ def k5_bf16_phase(torch, seed):
         x32, w32, b32 = x.float(), w.float(), b.float()
         row = dict(x=list(x.shape), dilation=list(m.dilation))
         row['ms'] = cuda_ms(torch, run)
-        row['device_ms'] = device_ms(torch, run, 'disc_im2col_bf16_kernel')
+        row['device_ms'] = device_ms(torch, run)
         row['kernel_ms'] = cuda_ms(torch, lambda: k5.forward_packed(x, wk, b, *geo))
         row['plain_ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward_plain(x, w, b, *geo),
                                   runs=5)
@@ -2655,6 +2779,75 @@ def bf16_codec_phase(torch, seed, ckpt: Path) -> dict:
           'the bf16 codec drifts from f32 beyond the gates of tests/test_bf16.py')
     check(launches['rvq_encode'] > 0 and launches['lstm_recurrence'] > 0
           and launches['resblock'] == 0, f'bf16 codec launches {launches}')
+    streamed = bf16_stream_check(torch, seed, models[torch.bfloat16])
+    return {k: v + streamed[k] for k, v in launches.items()}
+
+
+def bf16_stream_check(torch, seed, model) -> dict:
+    """The bf16 model streamed through a ``StreamingServer`` (2 slots, 4 hops a
+    chunk, 6 kbps), two streams of 224 hops at once, so that the batched
+    steps carry both slots: each stream's codes against the offline bf16
+    ``encode`` of its clip (>= 99 %) and its audio against the offline bf16
+    decode (>= 20 dB SNR); K1 and K2 launched, K3 not (a bf16 block streams
+    as its conv sequence). Returns the launch counts."""
+    import threading
+
+    from encodec_pytorch_tpu_torch.serve import StreamingServer
+    model.set_target_bandwidth(6.)
+    hop = model.encoder.hop_length
+    clips = make_clip(seed + 5, batch=2, seconds=STREAM_HOPS * hop / SR)
+    frames = model.encode(torch.from_numpy(clips).cuda())
+    offline_codes = frames[0][0].cpu().numpy()
+    offline = model.decode(frames).float().cpu().numpy()
+    server = StreamingServer(model, max_streams=2, chunk_hops=CHUNK_HOPS, max_wait_ms=5.0,
+                             bandwidth=6., device='cuda')
+    first, chunk = FIRST_HOPS * hop, server.chunk_samples
+    live = []                     # live slots of each batched step
+    real_mux = server._mux
+
+    def counted_mux(*args):
+        live.append(int(args[3].sum()))
+        return real_mux(*args)
+    server._mux = counted_mux
+    outputs, errors = [None] * len(clips), []
+
+    def run_stream(i):
+        try:
+            with server.open_stream() as stream:
+                pieces = [stream.process(clips[i][:, :first], timeout=120, with_codes=True)]
+                for a in range(first, clips.shape[-1], chunk):
+                    pieces.append(stream.process(clips[i][:, a:a + chunk], timeout=120,
+                                                 with_codes=True))
+            outputs[i] = tuple(np.concatenate(p, axis=-1) for p in zip(*pieces))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append((i, repr(e)))
+
+    reset_counts()
+    threads = [threading.Thread(target=run_stream, args=(i,)) for i in range(len(clips))]
+    t0 = time.perf_counter()
+    with server:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        stats = server.stats()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(not errors and all(o is not None for o in outputs), f'bf16 streams failed: {errors}')
+    both = sum(n == 2 for n in live)
+    same = float(np.mean([np.mean(o[1] == offline_codes[i]) for i, o in enumerate(outputs)]))
+    snrs = [snr_db(offline[i], o[0]) for i, o in enumerate(outputs)]
+    log(f'bf16 streaming: StreamingServer over the bf16 model, 2 streams of '
+        f'{clips.shape[-1] / SR:.3f} s at once in {CHUNK_HOPS}-hop chunks at 6 kbps: '
+        f'{both} of {len(live)} batched steps carried both slots; codes equal to the offline '
+        f'bf16 encode {same:.6f}; SNR vs the offline bf16 decode min {min(snrs):.2f} dB; tick '
+        f'ms p50 {stats["tick_ms_p50"]:.3f} p99 {stats["tick_ms_p99"]:.3f}; {wall:.3f} s; '
+        f'kernel launches {launches}')
+    check(same >= K1_TOL_SHARE and min(snrs) >= SNR_MIN_DB,
+          'the bf16 stream disagrees with the offline bf16 model')
+    check(both > 0, 'no batched bf16 step carried both streams')
+    check(launches['rvq_encode'] > 0 and launches['lstm_recurrence'] > 0
+          and launches['resblock'] == 0, f'bf16 streaming launches {launches}')
     return launches
 
 
@@ -2716,7 +2909,7 @@ def run(seed: int, before_dir=None) -> int:
         k6, lm_launches = lm_codec_phase(torch, seed, Path(tmp))
     launches = {k: cli_launches[k] + serve_launches[k] + lm_launches[k] for k in CODEC_KERNELS}
     phase('K4')
-    k4_fwd, k4_dx = k4_phase(torch, seed)
+    k4_fwd, k4_dx = k4_phase(torch, seed, before=before)
     with tempfile.TemporaryDirectory() as tmp:
         phase('training')
         train_launches, train32 = training_phase(torch, seed, Path(tmp),
@@ -2740,7 +2933,7 @@ def run(seed: int, before_dir=None) -> int:
     for k in TRAIN_KERNELS:
         train_launches[k] += state_launches[k]
     phase('K4 at 48 kHz')
-    k4_fwd48, k4_dx48 = k4_phase(torch, seed, 'config_48k_stereo')
+    k4_fwd48, k4_dx48 = k4_phase(torch, seed, 'config_48k_stereo', before)
     for summary, at48 in ((k4_fwd, k4_fwd48), (k4_dx, k4_dx48)):
         summary['shapes'] = [dict(summary, config='config'), dict(at48, config='config_48k_stereo')]
         summary['max_abs_err'] = max(summary['max_abs_err'], at48['max_abs_err'])
@@ -2760,7 +2953,7 @@ def run(seed: int, before_dir=None) -> int:
         phase('48 kHz training')
         train48_launches, _ = training_phase(torch, seed, Path(tmp), 'config_48k_stereo')
     phase('K4 bf16')
-    k4_fwd16, k4_dx16 = k4_bf16_phase(torch, seed)
+    k4_fwd16, k4_dx16 = k4_bf16_phase(torch, seed, before)
     phase('K5 bf16')
     k5_16 = k5_bf16_phase(torch, seed)
     phase('48 kHz bf16 step')
@@ -2773,6 +2966,7 @@ def run(seed: int, before_dir=None) -> int:
     phase('done')
 
     k4_src = 'encodec_pytorch_tpu_torch/csrc/disc_conv.cu'
+    k4_src16 = 'encodec_pytorch_tpu_torch/csrc/disc_conv_bf16.cu'
     k4_tpu = 'encodec_pytorch_tpu/ops/pallas_conv2d_v2.py:114'
     kernels = [
         dict(name='rvq_encode', route='cuda', source='encodec_pytorch_tpu_torch/csrc/rvq.cu',
@@ -2798,16 +2992,16 @@ def run(seed: int, before_dir=None) -> int:
         dict(name='lm_coder', route='cuda', source='encodec_pytorch_tpu_torch/csrc/lm_coder.cu',
              replaces='encodec_pytorch_tpu/bitstream/fused.py:191',
              launches=lm_launches['lm_coder'] + lm48_launches['lm_coder'], **k6),
-        dict(name='disc_conv_forward_bf16', route='cuda', source=k4_src, replaces=k4_tpu,
+        dict(name='disc_conv_forward_bf16', route='cuda', source=k4_src16, replaces=k4_tpu,
              launches=bf16_launches['disc_conv_forward_bf16'], **k4_fwd16),
-        dict(name='disc_conv_input_grad_bf16', route='cuda', source=k4_src, replaces=k4_tpu,
+        dict(name='disc_conv_input_grad_bf16', route='cuda', source=k4_src16, replaces=k4_tpu,
              launches=bf16_launches['disc_conv_input_grad_bf16'], **k4_dx16),
         dict(name='disc_im2col_forward_bf16', route='cuda',
              source='encodec_pytorch_tpu_torch/csrc/disc_im2col.cu',
              replaces='encodec_pytorch_tpu/ops/pallas_conv2d.py:42',
              launches=bf16_launches['disc_im2col_forward_bf16'], **k5_16),
     ]
-    log(json.dumps({'kernels': kernels}))
+    log(json.dumps(json_safe({'kernels': kernels}), allow_nan=False))
     log(smi)
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                            'kind': torch.cuda.get_device_name(0),
@@ -2820,7 +3014,8 @@ def main() -> int:
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--before', type=Path, default=None,
                         help='another checkout of the port (e.g. the parent commit): the K1, '
-                             'K3 and K5 phases also time its kernels and compare their outputs')
+                             'K3, K5 and K4 bf16 phases also time its kernels and compare their '
+                             'outputs')
     args = parser.parse_args()
     try:
         return run(args.seed, args.before)

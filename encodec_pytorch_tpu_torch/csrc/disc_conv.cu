@@ -1,6 +1,5 @@
 // Discriminator 2-D conv, forward and input gradient (kernel K4) for Hopper,
-// on the tensor cores: f32 in and out in 3xTF32, or bf16 in and out in one
-// pass of bf16 products (the second half of this file).
+// on the tensor cores: f32 in and out in 3xTF32.
 //
 // Replaces: encodec_pytorch_tpu/ops/pallas_conv2d_v2.py `_kernel` (entries
 // `conv2d_v2` forward and `conv2d_v2_dx` input gradient, wrapped by the
@@ -77,25 +76,10 @@
 //   cudaErrorInvalidValue. `wgmma` is a later step: with N = 32 and a
 //   gathered A, its shared-memory operand layout buys little yet.
 //
-// The bf16 form (the TPU kernel runs in its input's dtype: bf16 scratch,
-// f32 accumulation, bf16 out, pallas_conv2d_v2.py:159, :189, :241, :287):
-// bf16 x bf16 products, exact in f32, summed in f32 by
-// mma.sync.m16n8k16.bf16, and the sum rounded to nearest even to bf16; the
-// bias, when given, is added after that rounding, in bf16 (round(round(acc)
-// + bias)), as the JAX package's conv adds it (ops/conv.py:263). Same tiles
-// and grid as the f32 form; a chunk is CC16 = 8 summed channels, and a
-// k-step of 16 is those 8 channels at two taps (k 0-7 tap 2s, 8-15 tap
-// 2s+1), so the lane that holds k 2q, 2q+1 holds channels 2q and 2q+1. The
-// staged window therefore keeps each position's channel pair in one 32-bit
-// word: one shared load a register of A, at the f32 form's addresses and
-// banks. The pair comes from two channel planes, which no cp.async can
-// join, so the window is staged by plain loads through registers (the
-// weights still by 16-byte cp.async, overlapping the previous chunk). No
-// hi/lo halves: one mma a fragment instead of three, and half the bytes.
+// The bf16 form is a kernel of its own, csrc/disc_conv_bf16.cu.
 #include <atomic>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -377,240 +361,6 @@ __global__ void pack_weight_kernel(const float* __restrict__ w, float4* __restri
     out[idx] = make_float4(hi[0], hi[1], lo[0], lo[1]);
 }
 
-// ---------------------------------------------------------------- bf16
-
-constexpr int CC16 = 8;   // summed channels a chunk (4 pairs)
-
-template <int S, int KT, int NJ>
-struct Taps16 {
-    static constexpr int TAPS = KT * NJ;
-    static constexpr int NS = (TAPS + 1) / 2;         // k-steps (k16) a chunk
-    static constexpr int W = (FT - 1) * S + NJ;       // input columns a tile
-    static constexpr int HALF = S == 2 ? (W + 1) / 2 : W;
-    static constexpr int RS = S == 2 ? 2 * HALF : W;  // words (channel pairs) a staged row
-    static constexpr int WCH = NS * 2 * 32 * 4;       // weight words a chunk
-};
-
-template <int S, int KT, int NJ>
-size_t smem_bytes_bf16(int dt) {
-    using P = Taps16<S, KT, NJ>;
-    const int R = TT + (KT - 1) * dt;
-    return 2 * sizeof(uint32_t) * ((size_t)P::WCH + (size_t)(CC16 / 2) * chan_stride(R, P::RS));
-}
-
-__device__ __forceinline__ void cp_async16_u32(uint32_t* dst, const uint32_t* src) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src));
-}
-
-// d += a * b for one m16n8k16 fragment, bf16 operands, f32 accumulators.
-// Fragments (lane = 4*g + q; a register holds two bf16, the lower k in the
-// low half): A a01 (row g, k 2q..2q+1), a23 (row g+8, the same k), a45 (row
-// g, k 2q+8..2q+9), a67 (row g+8, those k); B b01 (k 2q..2q+1, col g), b23
-// (k 2q+8..2q+9, col g); C as m16n8k8's.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// round(round_bf16(acc) + bias) in bf16, as bits
-__device__ __forceinline__ uint16_t bf16_out(float acc, const uint16_t* bias, int o) {
-    __nv_bfloat16 y = __float2bfloat16_rn(acc);
-    if (bias)
-        y = __float2bfloat16_rn(__bfloat162float(y)
-                                + __bfloat162float(__ushort_as_bfloat16(bias[o])));
-    return __bfloat16_as_ushort(y);
-}
-
-// The f32 kernel's tiling with bf16 operands: weights per chunk in fragment
-// order [k-step][n-fragment pair][lane][4 words] (words: n = 2h b01, b23,
-// n = 2h + 1 b01, b23); the window as channel-pair words.
-template <int S, int KT, int NJ>
-__global__ void __launch_bounds__(THREADS, 2)
-disc_conv_bf16_kernel(const uint16_t* __restrict__ in, const uint32_t* __restrict__ wk,
-                      const uint16_t* __restrict__ bias, uint16_t* __restrict__ out,
-                      Geometry g) {
-    using P = Taps16<S, KT, NJ>;
-    extern __shared__ __align__(16) uint32_t smem_w[];
-    const int R = TT + (KT - 1) * g.dt;          // staged input rows
-    const int CS = chan_stride(R, P::RS);        // words from one channel pair to the next
-    const int BUF = P::WCH + (CC16 / 2) * CS;    // words a stage buffer
-
-    int z = blockIdx.z;
-    const int phase = z % g.n_phase;
-    z /= g.n_phase;
-    const int ot = z % g.o_tiles;
-    const int b = z / g.o_tiles;
-    const int t0 = blockIdx.y * TT;
-    const int p_lo = phase ? g.p_lo[1] : g.p_lo[0];
-    const int np = phase ? g.np[1] : g.np[0];
-    const int ooff = phase ? g.ooff[1] : g.ooff[0];
-    const int pt0 = blockIdx.x * FT;
-    if (pt0 >= np) return;                       // the whole block: before any barrier
-    const int wbase = (p_lo + pt0) * S + g.col_off;
-    const int rbase = t0 + g.t_off;
-    const uint32_t* wsrc = wk + (size_t)(phase * g.o_tiles + ot) * g.n_chunks * P::WCH;
-    const size_t plane = (size_t)g.Tin * g.Fin;
-    const uint16_t* in_b = in + (size_t)b * g.C * plane;
-
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int gq = lane >> 2;
-    const int q = lane & 3;                      // the channel pair of the lane's k slots
-
-    auto stage = [&](int k, uint32_t* buf) {
-        const uint32_t* src = wsrc + (size_t)k * P::WCH;
-        for (int i = tid; i < P::WCH / 4; i += THREADS) cp_async16_u32(buf + 4 * i, src + 4 * i);
-        uint32_t* xs = buf + P::WCH;
-        for (int p = 0; p < CC16 / 2; ++p) {
-            const int ch = k * CC16 + 2 * p;
-            for (int r = warp; r < R; r += NWARPS) {
-                const int row = rbase + r;
-                const bool row_ok = row >= 0 && row < g.Tin;
-                const bool ok0 = row_ok && ch < g.C, ok1 = row_ok && ch + 1 < g.C;
-                const uint16_t* s0 = ok0 ? in_b + ch * plane + (size_t)row * g.Fin : in;
-                const uint16_t* s1 = ok1 ? s0 + plane : in;
-                uint32_t* dst = xs + p * CS + r * P::RS;
-                for (int col = lane; col < P::W; col += 32) {
-                    const int f = wbase + col;
-                    const bool fok = f >= 0 && f < g.Fin;
-                    const uint32_t lo = ok0 && fok ? __ldg(s0 + f) : 0u;
-                    const uint32_t hi = ok1 && fok ? __ldg(s1 + f) : 0u;
-                    dst[xs_col<S, P::HALF>(col)] = lo | (hi << 16);
-                }
-            }
-        }
-    };
-
-    float acc[4][4][4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[f][n][i] = 0.f;
-
-    const int row0 = 2 * warp;
-    const bool live = t0 + row0 < g.Tout;              // warp-uniform
-    const int frags = min(4, (np - pt0 + 7) / 8);      // block-uniform
-    int mt_off[KT];
-#pragma unroll
-    for (int mt = 0; mt < KT; ++mt) mt_off[mt] = mt * g.dt * P::RS;
-
-    stage(0, smem_w);
-    cp_async_commit();
-    for (int k = 0; k < g.n_chunks; ++k) {
-        cp_async_wait_all();
-        __syncthreads();   // chunk k is in; every warp is done with chunk k-1's buffer
-        if (k + 1 < g.n_chunks) stage(k + 1, smem_w + ((k + 1) & 1) * BUF);
-        cp_async_commit();
-        if (!live) continue;
-        const uint32_t* buf = smem_w + (k & 1) * BUF;
-        const uint4* wf = reinterpret_cast<const uint4*>(buf) + lane;
-        const uint32_t* xw = buf + P::WCH + q * CS + row0 * P::RS + gq;
-#pragma unroll
-        for (int s = 0; s < P::NS; ++s) {
-            const int tap0 = 2 * s, tap1 = 2 * s + 1;
-            const bool has1 = tap1 < P::TAPS;
-            const int j0 = tap0 % NJ, j1 = tap1 % NJ;
-            const int off0 = mt_off[tap0 / NJ] + (S == 2 ? (j0 >> 1) + (j0 & 1) * P::HALF : j0);
-            const int off1 = has1 ? mt_off[tap1 / NJ]
-                                        + (S == 2 ? (j1 >> 1) + (j1 & 1) * P::HALF : j1)
-                                  : 0;
-            uint32_t bw[4][2];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const uint4 v = wf[(s * 2 + h) * 32];
-                bw[2 * h][0] = v.x;
-                bw[2 * h][1] = v.y;
-                bw[2 * h + 1][0] = v.z;
-                bw[2 * h + 1][1] = v.w;
-            }
-#pragma unroll
-            for (int f = 0; f < 4; ++f) {
-                if (f < frags) {
-                    const uint32_t* xf = xw + f * 8;
-                    uint32_t a[4];
-                    a[0] = xf[off0];
-                    a[1] = xf[off0 + P::RS];
-                    a[2] = has1 ? xf[off1] : 0u;
-                    a[3] = has1 ? xf[off1 + P::RS] : 0u;
-#pragma unroll
-                    for (int n = 0; n < 4; ++n) mma_bf16(acc[f][n], a, bw[n][0], bw[n][1]);
-                }
-            }
-        }
-    }
-    if (!live) return;
-
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-        const int p = pt0 + f * 8 + gq;
-        if (p >= np) continue;
-        const int col = (p_lo + p) * g.OS + ooff;
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int t = t0 + row0 + (i >> 1);
-                const int o = ot * OT + n * 8 + 2 * q + (i & 1);
-                if (t >= g.Tout || o >= g.O) continue;
-                out[(((size_t)b * g.O + o) * g.Tout + t) * g.Fout + col] =
-                    bf16_out(acc[f][n][i], bias, o);
-            }
-        }
-    }
-}
-
-// The bf16 weight operand in fragment order (ops/disc_conv_kernel.py
-// `pack_weight_bf16` is its plain version; the bits are the same): one thread
-// a word of [P][ceil(O/32)][ceil(C/8)][steps][2][32][4], the word (n, r) of
-// lane 4g + q in half h being n = 2h + (word >> 1), r = word & 1: channels
-// 8*chunk + 2q (low half) and 2q + 1 (high half) at tap 2*step + r, for output
-// channel 32*tile + 8n + g. Taps as pack_weight_kernel's; bf16 in, no rounding.
-__global__ void pack_weight_bf16_kernel(const uint16_t* __restrict__ w, uint32_t* __restrict__ out,
-                                        int Cout, int Cin, int KT, int KF, int sf, int dx,
-                                        int total) {
-    const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int C = dx ? Cout : Cin, O = dx ? Cin : Cout;
-    const int NJ = dx ? (KF + sf - 1) / sf : KF;
-    const int taps = KT * NJ, steps = (taps + 1) / 2;
-    const int chunks = (C + CC16 - 1) / CC16, tiles = (O + OT - 1) / OT;
-    int rest = idx;
-    const int word = rest % 4; rest /= 4;
-    const int lane = rest % 32; rest /= 32;
-    const int h = rest % 2; rest /= 2;
-    const int step = rest % steps; rest /= steps;
-    const int chunk = rest % chunks; rest /= chunks;
-    const int tile = rest % tiles;
-    const int phase = rest / tiles;
-    const int n = 2 * h + (word >> 1);
-    const int tap = 2 * step + (word & 1);
-    const int o = tile * OT + n * 8 + (lane >> 2);
-    uint32_t bits = 0;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        const int c = chunk * CC16 + 2 * (lane & 3) + half;
-        uint32_t v = 0;
-        if (c < C && o < O && tap < taps) {
-            const int mt = tap / NJ, j = tap % NJ;
-            if (!dx) {
-                v = w[(((size_t)o * Cin + c) * KT + mt) * KF + j];
-            } else {
-                const int kf = phase + sf * (NJ - 1 - j);
-                if (kf < KF) v = w[(((size_t)c * Cin + o) * KT + (KT - 1 - mt)) * KF + kf];
-            }
-        }
-        bits |= v << (16 * half);
-    }
-    out[idx] = bits;
-}
-
 // The device's opt-in shared-memory limit, read once per device.
 int max_smem_optin(int device) {
     static std::atomic<int> cached[MAX_DEVICES];
@@ -621,14 +371,13 @@ int max_smem_optin(int device) {
     return v;
 }
 
-// One tap class, in f32 (3xTF32) or bf16 (BF): the kernel's shared memory
-// raised to the opt-in limit once per device and instantiation, then the grid.
-template <bool BF, int S, int KT, int NJ>
-cudaError_t launch_taps(const void* in, const void* wk, const void* bias, void* out,
+// One tap class: the kernel's shared memory raised to the opt-in limit once
+// per device and instantiation, then the grid.
+template <int S, int KT, int NJ>
+cudaError_t launch_taps(const float* in, const float* wk, const float* bias, float* out,
                         const Geometry& g, int device, cudaStream_t stream) {
-    const size_t smem = BF ? smem_bytes_bf16<S, KT, NJ>(g.dt) : smem_bytes<S, KT, NJ>(g.dt);
-    const void* kernel = BF ? reinterpret_cast<const void*>(disc_conv_bf16_kernel<S, KT, NJ>)
-                            : reinterpret_cast<const void*>(disc_conv_kernel<S, KT, NJ>);
+    const size_t smem = smem_bytes<S, KT, NJ>(g.dt);
+    const void* kernel = reinterpret_cast<const void*>(disc_conv_kernel<S, KT, NJ>);
     const int max_smem = max_smem_optin(device);
     if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
     static std::atomic<bool> configured[MAX_DEVICES];
@@ -647,28 +396,20 @@ cudaError_t launch_taps(const void* in, const void* wk, const void* bias, void* 
     if (z > 65535) return cudaErrorInvalidConfiguration;
     dim3 grid((np_max + FT - 1) / FT, (g.Tout + TT - 1) / TT, (unsigned)z);
     if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-    if constexpr (BF)
-        disc_conv_bf16_kernel<S, KT, NJ><<<grid, THREADS, smem, stream>>>(
-            static_cast<const uint16_t*>(in), static_cast<const uint32_t*>(wk),
-            static_cast<const uint16_t*>(bias), static_cast<uint16_t*>(out), g);
-    else
-        disc_conv_kernel<S, KT, NJ><<<grid, THREADS, smem, stream>>>(
-            static_cast<const float*>(in), static_cast<const float*>(wk),
-            static_cast<const float*>(bias), static_cast<float*>(out), g);
+    disc_conv_kernel<S, KT, NJ><<<grid, THREADS, smem, stream>>>(in, wk, bias, out, g);
     return cudaGetLastError();
 }
 
 // The discriminator's tap counts: 3x9 forward at F-stride 2, 3x3 forward and
 // dx at F-stride 1, 3x5 dx of the 3x9 convs. No other is built.
-template <bool BF>
-cudaError_t launch(int S, const void* in, const void* wk, const void* bias, void* out,
+cudaError_t launch(int S, const float* in, const float* wk, const float* bias, float* out,
                    const Geometry& g, int device, cudaStream_t stream) {
     if (S == 2 && g.KT == 3 && g.NJ == 9)
-        return launch_taps<BF, 2, 3, 9>(in, wk, bias, out, g, device, stream);
+        return launch_taps<2, 3, 9>(in, wk, bias, out, g, device, stream);
     if (S == 1 && g.KT == 3 && g.NJ == 3)
-        return launch_taps<BF, 1, 3, 3>(in, wk, bias, out, g, device, stream);
+        return launch_taps<1, 3, 3>(in, wk, bias, out, g, device, stream);
     if (S == 1 && g.KT == 3 && g.NJ == 5)
-        return launch_taps<BF, 1, 3, 5>(in, wk, bias, out, g, device, stream);
+        return launch_taps<1, 3, 5>(in, wk, bias, out, g, device, stream);
     return cudaErrorInvalidValue;
 }
 
@@ -721,56 +462,43 @@ Geometry input_grad_geometry(int B, int Cin, int Cout, int T, int F, int KT, int
     return g;
 }
 
-template <bool BF>
-int forward(const void* x, const void* wk, const void* bias, void* y, int B, int Cin, int Cout,
-            int T, int F, int KT, int KF, int sf, int dt, int pt, int pf, int device,
+int forward(const float* x, const float* wk, const float* bias, float* y, int B, int Cin,
+            int Cout, int T, int F, int KT, int KF, int sf, int dt, int pt, int pf, int device,
             void* stream) {
     if (sf != 1 && sf != 2) return cudaErrorInvalidValue;
     cudaError_t err = use_device(device);
     if (err != cudaSuccess) return err;
-    const Geometry g = forward_geometry(B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf,
-                                        BF ? CC16 : CC);
+    const Geometry g = forward_geometry(B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, CC);
     if (B <= 0 || g.Tout <= 0 || g.Fout <= 0) return cudaSuccess;
-    return launch<BF>(sf, x, wk, bias, y, g, device, static_cast<cudaStream_t>(stream));
+    return launch(sf, x, wk, bias, y, g, device, static_cast<cudaStream_t>(stream));
 }
 
-template <bool BF>
-int input_grad(const void* gy, const void* wk, void* dx, int B, int Cin, int Cout, int T, int F,
-               int KT, int KF, int sf, int dt, int pt, int pf, int device, void* stream) {
+int input_grad(const float* gy, const float* wk, float* dx, int B, int Cin, int Cout, int T,
+               int F, int KT, int KF, int sf, int dt, int pt, int pf, int device, void* stream) {
     if (sf != 1 && sf != 2) return cudaErrorInvalidValue;
     cudaError_t err = use_device(device);
     if (err != cudaSuccess) return err;
-    const Geometry g = input_grad_geometry(B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf,
-                                           BF ? CC16 : CC);
+    const Geometry g = input_grad_geometry(B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, CC);
     if (B <= 0 || T <= 0 || F <= 0) return cudaSuccess;
-    return launch<BF>(1, gy, wk, nullptr, dx, g, device, static_cast<cudaStream_t>(stream));
+    return launch(1, gy, wk, nullptr, dx, g, device, static_cast<cudaStream_t>(stream));
 }
 
-template <bool BF>
-int pack(const void* w, void* out, int Cout, int Cin, int KT, int KF, int sf, int dx, int device,
-         void* stream) {
+int pack(const float* w, float* out, int Cout, int Cin, int KT, int KF, int sf, int dx,
+         int device, void* stream) {
     if (sf != 1 && sf != 2) return cudaErrorInvalidValue;
     cudaError_t err = use_device(device);
     if (err != cudaSuccess) return err;
     const int C = dx ? Cout : Cin, O = dx ? Cin : Cout;
     const int NJ = dx ? (KF + sf - 1) / sf : KF;
-    const int cc = BF ? CC16 : CC;
-    // f32: a float4 a thread, 128 a k-step; bf16: a word a thread, 256 a k-step
-    const long long total = (long long)(dx ? sf : 1) * ((O + OT - 1) / OT) * ((C + cc - 1) / cc)
-                            * ((KT * NJ + 1) / 2) * (BF ? 256 : 128);
+    // a float4 a thread, 128 a k-step
+    const long long total = (long long)(dx ? sf : 1) * ((O + OT - 1) / OT) * ((C + CC - 1) / CC)
+                            * ((KT * NJ + 1) / 2) * 128;
     if (total <= 0) return cudaSuccess;
     if (total > (1LL << 30)) return cudaErrorInvalidValue;
     const int threads = 256;
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    auto s = static_cast<cudaStream_t>(stream);
-    if constexpr (BF)
-        pack_weight_bf16_kernel<<<blocks, threads, 0, s>>>(
-            static_cast<const uint16_t*>(w), static_cast<uint32_t*>(out), Cout, Cin, KT, KF, sf,
-            dx, (int)total);
-    else
-        pack_weight_kernel<<<blocks, threads, 0, s>>>(
-            static_cast<const float*>(w), static_cast<float4*>(out), Cout, Cin, KT, KF, sf, dx,
-            (int)total);
+    pack_weight_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        w, reinterpret_cast<float4*>(out), Cout, Cin, KT, KF, sf, dx, (int)total);
     return cudaGetLastError();
 }
 
@@ -785,8 +513,7 @@ extern "C" int encodec_disc_conv_fwd_f32(const float* x, const float* wk, const 
                                          float* y, int B, int Cin, int Cout, int T, int F,
                                          int KT, int KF, int sf, int dt, int pt, int pf,
                                          int device, void* stream) {
-    return forward<false>(x, wk, bias, y, B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, device,
-                          stream);
+    return forward(x, wk, bias, y, B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, device, stream);
 }
 
 // Input gradient. gy [B, Cout, To, Fo] (the output's cotangent); wk the
@@ -798,8 +525,7 @@ extern "C" int encodec_disc_conv_dx_f32(const float* gy, const float* wk, float*
                                         int Cin, int Cout, int T, int F, int KT, int KF,
                                         int sf, int dt, int pt, int pf, int device,
                                         void* stream) {
-    return input_grad<false>(gy, wk, dx, B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, device,
-                             stream);
+    return input_grad(gy, wk, dx, B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, device, stream);
 }
 
 // The weight operand of the forward (dx = 0) or of the input gradient
@@ -808,31 +534,5 @@ extern "C" int encodec_disc_conv_dx_f32(const float* gy, const float* wk, float*
 // floats. Returns a CUDA error code (0 = launched).
 extern "C" int encodec_disc_conv_pack_f32(const float* w, float* out, int Cout, int Cin, int KT,
                                           int KF, int sf, int dx, int device, void* stream) {
-    return pack<false>(w, out, Cout, Cin, KT, KF, sf, dx, device, stream);
-}
-
-// The bf16 forms: x, wk, bias, y (forward) and gy, wk, dx (input gradient)
-// as the f32 entries' but bf16 (passed as their bits), the weights as
-// encodec_disc_conv_pack_bf16 writes them, [P][ceil(O/32)][ceil(C/8)]
-// [ceil(taps/2)][2][32][4] 32-bit words of two bf16 (pack_weight_bf16_kernel).
-extern "C" int encodec_disc_conv_fwd_bf16(const uint16_t* x, const uint32_t* wk,
-                                          const uint16_t* bias, uint16_t* y, int B, int Cin,
-                                          int Cout, int T, int F, int KT, int KF, int sf, int dt,
-                                          int pt, int pf, int device, void* stream) {
-    return forward<true>(x, wk, bias, y, B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, device,
-                         stream);
-}
-
-extern "C" int encodec_disc_conv_dx_bf16(const uint16_t* gy, const uint32_t* wk, uint16_t* dx,
-                                         int B, int Cin, int Cout, int T, int F, int KT, int KF,
-                                         int sf, int dt, int pt, int pf, int device,
-                                         void* stream) {
-    return input_grad<true>(gy, wk, dx, B, Cin, Cout, T, F, KT, KF, sf, dt, pt, pf, device,
-                            stream);
-}
-
-extern "C" int encodec_disc_conv_pack_bf16(const uint16_t* w, uint32_t* out, int Cout, int Cin,
-                                           int KT, int KF, int sf, int dx, int device,
-                                           void* stream) {
-    return pack<true>(w, out, Cout, Cin, KT, KF, sf, dx, device, stream);
+    return pack(w, out, Cout, Cin, KT, KF, sf, dx, device, stream);
 }

@@ -23,14 +23,15 @@ term is the sum of three TF32 products, so the result holds the f32 conv to
 within 1e-5 of its largest value. :func:`pack_weight` splits the weights once
 a call and lays them out in the order of the kernel's ``mma`` fragments; on
 the card :func:`pack_weight_cuda` does the same in one launch. In bfloat16
-(:func:`disc_conv_forward_bf16`, :func:`disc_conv_input_grad_bf16`) it is one
-pass of bf16 ``mma`` products summed in f32, the sum rounded to bf16 and the
-bias added after that rounding, in bf16 (the JAX package's dtype rule,
-``ops/conv.py:263``); its weights are laid out by :func:`pack_weight_bf16`
-(one launch on the card), with no hi/lo halves. The plain versions in bf16
-are the f32 conv of the bf16 operands, rounded to bf16, then the bias added
-in bf16: that defines the semantics exactly, whatever a bf16 conv on the CPU
-does.
+(:func:`disc_conv_forward_bf16`, :func:`disc_conv_input_grad_bf16`) it is a
+kernel of its own (``csrc/disc_conv_bf16.cu``): bf16 ``wgmma`` products
+summed in f32, the sum rounded to bf16 and the bias added after that
+rounding, in bf16 (the JAX package's dtype rule, ``ops/conv.py:263``); its
+weights are the B images of :func:`pack_weight_bf16`, one per k-step of
+:func:`bf16_steps`, laid out by one launch a call (:func:`pack_weight_cuda`).
+The plain versions in bf16 are the f32 conv of the bf16 operands, rounded to
+bf16, then the bias added in bf16: that defines the semantics exactly,
+whatever a bf16 conv on the CPU does.
 
 Each wrapper runs its plain version only for CPU tensors. For a CUDA tensor it
 launches the kernel of the tensors' dtype, or raises on a dtype, shape or
@@ -45,6 +46,7 @@ kernel, are in the source's head comment.
 """
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -68,6 +70,11 @@ CHUNK = 4
 CHUNK_BF16 = 8
 OUT_TILE = 32
 LANES = 32
+# the bf16 kernel's tiles (csrc/disc_conv_bf16.cu): output columns a tile of
+# a one-phase correlation (two core matrices of wgmma's A operand), and a
+# k-step's B image (32 output channels x 16 k, bf16)
+BF16_COLS = 16
+B_IMAGE_BF16 = 512
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -147,39 +154,77 @@ def pack_weight(wc: torch.Tensor) -> torch.Tensor:
                                            4).contiguous()
 
 
-def pack_weight_bf16(wc: torch.Tensor) -> torch.Tensor:
+def bf16_staged_col(S: int, NJ: int, j: int) -> int:
+    """Where the bf16 kernel stages window column ``j`` (relative to a tile's
+    first input column): at F-stride 2 (a forward, one phase) the even
+    columns first, then the odd ones, so that neighbouring output columns
+    read neighbouring staged columns at every tap."""
+    if S == 1:
+        return j
+    half = ((BF16_COLS - 1) * S + NJ + 1) // 2
+    return j // 2 + (j % 2) * half
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_steps(S: int, KT: int, NJ: int, P: int, phase: int):
+    """The bf16 kernel's k-steps for ``phase``: its taps ``(mt, j)`` in the
+    order of their staged addresses (row, then staged column), two a k-step
+    (k 0-7: the chunk's 8 channels at the first tap, k 8-15 at the second;
+    ``None`` pads an odd count with zero weights). Phase 1 of a two-phase
+    input gradient (taps 3x5 of a 3x9 conv at F-stride 2) has no tap ``j =
+    0``: its weights are zero there."""
+    taps = sorted(((mt, j) for mt in range(KT) for j in range(NJ)
+                   if not (P == 2 and phase == 1 and j == 0)),
+                  key=lambda t: (t[0], bf16_staged_col(S, NJ, t[1])))
+    taps.append(None)
+    return tuple((taps[2 * i], taps[2 * i + 1]) for i in range(len(taps) // 2))
+
+
+def pack_weight_bf16(wc: torch.Tensor, S: int) -> torch.Tensor:
     """The bf16 kernel's weight operand, from the correlation weights ``wc [P,
-    C, KT, NJ, O]`` (bf16), laid out as ``[P, O/32, C/8, ceil(KT·NJ/2), 2, 32,
-    8]`` (C, O and the taps padded with zeros): phase, output tile, chunk of 8
-    summed channels, k-step (two taps), pair of n-fragments ``h``, lane ``4g +
-    q``, and the lane's four 32-bit B registers as bf16 pairs: for n-fragment
-    ``2h + nl`` and tap slot ``r``, register ``2·nl + r`` holds summed channels
-    ``2q`` (low half) and ``2q + 1`` at the k-step's tap ``r``, for output
-    channel ``8·(2h + nl) + g``. No rounding: the values are moved."""
+    C, KT, NJ, O]`` (bf16) of a correlation at F-stride ``S``: ``[ceil(O/32),
+    ceil(C/8), steps, 512]``, per output tile of 32 channels and chunk of 8
+    summed channels the B images of :func:`bf16_steps`' k-steps, phase 0's,
+    then phase 1's. A B image is ``wgmma``'s K-major operand without swizzle
+    (core matrices of 8 channels x 8 k): element ``(n, k)`` sits at ``(n //
+    8)·128 + (k // 8)·64 + (n % 8)·8 + k % 8`` and is ``wc[phase, 8·chunk +
+    k % 8, mt, j, 32·tile + n]`` for the k-step's tap ``(mt, j)`` number ``k
+    // 8``; zero past C, O and at a padding tap. No rounding: the values are
+    moved."""
     P, C, KT, NJ, O = wc.shape
-    taps = KT * NJ
-    steps = -(-taps // 2)
     Cp, Op = -(-C // CHUNK_BF16) * CHUNK_BF16, -(-O // OUT_TILE) * OUT_TILE
-    w = F.pad(wc.reshape(P, C, taps, O), (0, Op - O, 0, 2 * steps - taps, 0, Cp - C))
-    # p, chunk, q, half, k-step, tap slot, output tile, h, nl, g
-    w = w.reshape(P, Cp // CHUNK_BF16, 4, 2, steps, 2, Op // OUT_TILE, 2, 2, 8)
-    w = w.permute(0, 6, 1, 4, 7, 9, 2, 8, 5, 3)
-    return w.reshape(P, Op // OUT_TILE, Cp // CHUNK_BF16, steps, 2, LANES, 8).contiguous()
+    wc = F.pad(wc, (0, Op - O, 0, 0, 0, 0, 0, Cp - C))
+    zero = wc.new_zeros(Cp, Op)
+    images = []
+    for r in range(P):
+        for pair in bf16_steps(S, KT, NJ, P, r):
+            # [Cp, Op] at each of the two taps -> [chunk, 2, c, tile, n]
+            halves = [zero if t is None else wc[r, :, t[0], t[1], :] for t in pair]
+            images.append(torch.stack(halves, 0).reshape(2, Cp // CHUNK_BF16, CHUNK_BF16,
+                                                         Op // OUT_TILE, OUT_TILE))
+    w = torch.stack(images, 0)              # step, half, chunk, c, tile, n
+    w = w.reshape(len(images), 2, Cp // CHUNK_BF16, CHUNK_BF16, Op // OUT_TILE, 4, 8)
+    # tile, chunk, step, n // 8, half, n % 8, c
+    return w.permute(4, 2, 0, 5, 1, 6, 3).reshape(
+        Op // OUT_TILE, Cp // CHUNK_BF16, len(images), B_IMAGE_BF16).contiguous()
 
 
 def pack_weight_cuda(w: torch.Tensor, sf: int, dx: bool) -> torch.Tensor:
     """:func:`pack_weight` (float32 ``w``) or :func:`pack_weight_bf16`
     (bfloat16 ``w``) of the forward's (``dx`` False: ``w.permute(1, 2, 3,
-    0)[None]``) or the input gradient's (``pack_dx_weight(w, sf)``)
-    correlation weights, in one launch on the card, from ``w [Cout, Cin, KT,
-    KF]`` (contiguous, on CUDA). The same bits as the plain version."""
+    0)[None]`` at F-stride ``sf``) or the input gradient's
+    (``pack_dx_weight(w, sf)`` at F-stride 1) correlation weights, in one
+    launch on the card, from ``w [Cout, Cin, KT, KF]`` (contiguous, on CUDA).
+    The same bits as the plain version."""
     Cout, Cin, KT, KF = w.shape
     C, O, NJ = (Cout, Cin, -(-KF // sf)) if dx else (Cin, Cout, KF)
     lead = (sf if dx else 1, -(-O // OUT_TILE))
     steps = -(-KT * NJ // 2)
     lib = _build.load()
     if w.dtype == torch.bfloat16:
-        out = torch.empty(*lead, -(-C // CHUNK_BF16), steps, 2, LANES, 8, device=w.device,
+        S, P = (1, sf) if dx else (sf, 1)
+        steps = sum(len(bf16_steps(S, KT, NJ, P, r)) for r in range(P))
+        out = torch.empty(lead[1], -(-C // CHUNK_BF16), steps, B_IMAGE_BF16, device=w.device,
                           dtype=torch.bfloat16)
         entry = lib.encodec_disc_conv_pack_bf16
     else:

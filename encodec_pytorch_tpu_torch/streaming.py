@@ -11,9 +11,11 @@ How each layer streams (the math of ``ops/conv.py`` and ``ops/lstm.py``):
   when ``s | T``, so a chunk needs only the previous ``pt`` input samples as
   carry. The first chunk reproduces offline's left padding (reflect by
   default) instead of a zero carry.
-- ``SEANetResnetBlock``: one call of :func:`..ops.resblock_kernel.resblock`
-  (kernel K3 on CUDA) whose ``left`` halo is the k3 conv's carry, its last
-  ``2d`` activated inputs; the first chunk pads as offline does.
+- ``SEANetResnetBlock``: for a float32 block of a weight-acting norm, one
+  call of :func:`..ops.resblock_kernel.resblock` (kernel K3 on CUDA) whose
+  ``left`` halo is the k3 conv's carry, its last ``2d`` activated inputs;
+  otherwise (bf16) the block's conv sequence with that same carry. The first
+  chunk pads as offline does.
 - ``SLSTM``: carry = per-layer (h, c), through kernel K2 with a carried state
   on CUDA (:func:`..ops.lstm_kernel.lstm_recurrence`).
 - causal ``SConvTranspose1d`` (``trim_right_ratio == 1``): the raw (untrimmed)
@@ -21,6 +23,15 @@ How each layer streams (the math of ``ops/conv.py`` and ``ops/lstm.py``):
   ``pt`` samples are partial sums that overlap the next chunk's head. They are
   carried (bias excluded) and overlap-added; offline's right trim is never
   emitting the final carry.
+
+Dtype (the JAX package's rule, ``encodec_pytorch_tpu/streaming.py``): a
+model built in bfloat16 streams in bfloat16. Every conv casts the chunk and
+its weight to the model's dtype and follows the offline conv's arithmetic
+(``ops.conv._biased``: in bf16 the f32 sum of the bf16 operands rounded to
+bf16, then the bias added in bf16); the transposed conv carries its partial
+sums in f32 and rounds once they are complete; the LSTM computes in f32 as
+offline; the encoder's latent and the decoder's waveform come out f32. The
+carries are f32 whatever the dtype, as the JAX package stores them.
 
 State: a dict keyed as the JAX package's (``layer_{i}``, and ``block_1``/
 ``block_3`` inside a block), every tensor with the batch on axis 0: conv
@@ -44,7 +55,7 @@ import torch.nn.functional as F
 
 from .models.seanet import SEANetDecoder, SEANetEncoder, SEANetResnetBlock
 from .ops import lstm_kernel, resblock_kernel
-from .ops.conv import SConv1d, SConvTranspose1d
+from .ops.conv import SConv1d, SConvTranspose1d, _biased
 from .ops.lstm import SLSTM
 from .ops.pad import pad1d
 
@@ -108,8 +119,10 @@ class ActSpec:
 
 
 def _stream_conv(conv: SConv1d, spec: ConvSpec, carry: torch.Tensor, x: torch.Tensor,
-                 first: bool, pad_mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal SConv1d on a chunk. carry: ``[B, in_ch, pt]`` previous raw input."""
+                 first: bool, pad_mode: str,
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal SConv1d on a chunk, in ``dtype`` by the offline conv's rule
+    (``ops.conv._biased``). carry: ``[B, in_ch, pt]`` previous raw input, f32."""
     pt = spec.carry_len
     if first:
         if x.shape[-1] <= pt:
@@ -117,29 +130,34 @@ def _stream_conv(conv: SConv1d, spec: ConvSpec, carry: torch.Tensor, x: torch.Te
         xc = pad1d(x, (pt, 0), mode=pad_mode)
     else:
         xc = torch.cat([carry, x], dim=-1) if pt else x
-    y = F.conv1d(xc, conv.conv.conv.kernel(), conv.conv.conv.bias, stride=spec.stride,
-                 dilation=spec.dilation)
+    weights = conv.conv.conv
+    y = _biased(F.conv1d, xc.to(dtype), weights.kernel().to(dtype), weights.bias.to(dtype),
+                stride=spec.stride, dilation=spec.dilation)
     if pt:
         tail = x if first else torch.cat([carry, x], dim=-1)
-        carry = tail[..., tail.shape[-1] - pt:]
+        carry = tail[..., tail.shape[-1] - pt:].float()
     return y, carry
 
 
 def _stream_convtr(convtr: SConvTranspose1d, spec: ConvTrSpec, carry: torch.Tensor,
-                   x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   x: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal SConvTranspose1d (``trim_right_ratio == 1``) on a chunk.
 
-    carry: ``[B, out_ch, pt]`` bias-free partial sums for the next chunk's
-    head. Emits ``n·stride`` samples."""
+    The raw sum is the f32 sum of the operands cast to ``dtype`` (bf16
+    products are exact in f32), so the overlap-add of two chunks' partial
+    sums is the offline conv's sum. carry: ``[B, out_ch, pt]`` bias-free
+    partial sums for the next chunk's head, f32. Emits ``n·stride`` samples,
+    rounded to ``dtype`` and then biased as the offline conv's output is."""
     w = convtr.convtr.convtr
     pt = spec.carry_len
     n = x.shape[-1]
-    raw = F.conv_transpose1d(x, w.kernel(), None, stride=spec.stride)   # n·s + pt
+    raw = F.conv_transpose1d(x.to(dtype).float(), w.kernel().to(dtype).float(), None,
+                             stride=spec.stride)   # n·s + pt
     emit = raw[..., :n * spec.stride]
     if pt:
         emit = torch.cat([emit[..., :pt] + carry, emit[..., pt:]], dim=-1)
         carry = raw[..., n * spec.stride:]
-    return emit + w.bias[:, None], carry
+    return emit.to(dtype) + w.bias.to(dtype)[:, None], carry
 
 
 def _stream_lstm(slstm: SLSTM, spec: LstmSpec, carry, x: torch.Tensor):
@@ -163,16 +181,28 @@ def _stream_lstm(slstm: SLSTM, spec: LstmSpec, carry, x: torch.Tensor):
 
 
 def _stream_block(block: SEANetResnetBlock, spec: BlockSpec, state: Dict[str, torch.Tensor],
-                  x: torch.Tensor, first: bool, pad_mode: str):
-    """One resblock on a chunk: K3 with the k3 conv's carry as its halo."""
+                  x: torch.Tensor, first: bool, pad_mode: str, dtype: torch.dtype):
+    """One resblock on a chunk. A float32 block of a weight-acting norm is one
+    call of K3 (its plain version on the CPU) with the k3 conv's carry as its
+    halo, where the offline block takes K3 (``takes_kernel``: gradients are
+    off here); any other block (bf16) is the offline block's conv sequence
+    with the same carry."""
     if first and x.shape[-1] <= 2 * spec.dilation:
         raise ValueError(f'first chunk too short for block_1: {x.shape[-1]} '
                          f'<= pad {2 * spec.dilation}')
-    y, carry = resblock_kernel.resblock(
-        x.contiguous(), *block.fused_weights(), dilation=spec.dilation, causal=True,
-        pad_mode=pad_mode, left=None if first else state['block_1'].contiguous(),
-        return_carry=True)
-    return y, {'block_1': carry, 'block_3': state['block_3']}
+    if block.fusable:
+        y, carry = resblock_kernel.resblock(
+            x.contiguous(), *block.fused_weights(), dilation=spec.dilation, causal=True,
+            pad_mode=pad_mode, left=None if first else state['block_1'].contiguous(),
+            return_carry=True)
+        return y, {'block_1': carry, 'block_3': state['block_3']}
+    k3, k1 = spec.convs()
+    y, carry = _stream_conv(block.block[1], k3, state['block_1'], F.elu(x), first, pad_mode,
+                            dtype)
+    y, _ = _stream_conv(block.block[3], k1, state['block_3'], F.elu(y), first, pad_mode, dtype)
+    shortcut, _ = _stream_conv(block.shortcut, ConvSpec('shortcut', spec.dim, spec.dim, 1),
+                               state['block_3'], x, first, pad_mode, dtype)
+    return shortcut + y, {'block_1': carry, 'block_3': state['block_3']}
 
 
 # ------------------------------------------------------------ op sequences
@@ -245,6 +275,7 @@ class StreamingSEANet:
                 raise ValueError('streaming decoder requires trim_right_ratio == 1')
             self.ops = _decoder_ops(module)
         self.module = module
+        self.dtype = module.dtype
         self.pad_mode = module.pad_mode
 
     def _layer(self, op):
@@ -292,15 +323,15 @@ class StreamingSEANet:
             layer = self._layer(op)
             if isinstance(op, ConvSpec):
                 x, new_state[op.name] = _stream_conv(layer, op, state[op.name], x, first,
-                                                     self.pad_mode)
+                                                     self.pad_mode, self.dtype)
             elif isinstance(op, ConvTrSpec):
-                x, new_state[op.name] = _stream_convtr(layer, op, state[op.name], x)
+                x, new_state[op.name] = _stream_convtr(layer, op, state[op.name], x, self.dtype)
             elif isinstance(op, LstmSpec):
                 x, new_state[op.name] = _stream_lstm(layer, op, state[op.name], x)
             else:
                 x, new_state[op.name] = _stream_block(layer, op, state[op.name], x, first,
-                                                      self.pad_mode)
-        return x, new_state
+                                                      self.pad_mode, self.dtype)
+        return x.float(), new_state
 
 
 class StreamingCodec:

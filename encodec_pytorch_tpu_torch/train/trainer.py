@@ -64,6 +64,11 @@ Device = Union[str, torch.device]
 def check_supported(config: Config) -> None:
     """Raise on a config option that the port does not run yet."""
     compute_dtype(config)
+    dataset = str(config.datasets.get('dataset', 'csv'))
+    if dataset != 'csv':
+        raise NotImplementedError(
+            f"datasets.dataset={dataset} is not ported yet (ROADMAP Queue 1, item 2: the "
+            f"multi-channel dataset); only 'csv' runs")
     dist = config.get('distributed', Config({}))
     if bool(dist.get('data_parallel', False)) and int(dist.get('world_size', 0) or 0) > 1:
         raise NotImplementedError('data parallelism over more than one card is not ported yet')

@@ -129,12 +129,12 @@ def main() -> int:
         print(f'  {e.self_device_time_total / 1e3 / args.steps:9.3f} ms  {e.count // args.steps:6d}x'
               f'  {e.key[:110]}')
     own = {'K4 (disc_conv_kernel)': 'disc_conv_kernel',
-           'K4 bf16 (disc_conv_bf16_kernel)': 'disc_conv_bf16_kernel',
+           'K4 bf16 (disc_conv_bf16_kernel<...>)': 'disc_conv_bf16_kernel<',
            'K5 (disc_im2col_kernel)': 'disc_im2col_kernel',
            'K5 bf16 (disc_im2col_bf16_kernel)': 'disc_im2col_bf16_kernel',
            'weight packing of K4 and K5 (pack_weight_kernel)': 'pack_weight_kernel',
-           'bf16 weight packing of K4 and K5 (pack_weight_bf16_kernel)':
-               'pack_weight_bf16_kernel',
+           'K4 bf16 weight packing (disc_conv_bf16_pack_kernel)': 'disc_conv_bf16_pack_kernel',
+           'K5 bf16 weight packing (pack_weight_bf16_kernel)': 'pack_weight_bf16_kernel',
            'K2 forward (lstm_recurrence_kernel)': 'lstm_recurrence_kernel'}
     for label, name in own.items():
         ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / args.steps

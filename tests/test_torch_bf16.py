@@ -15,6 +15,9 @@ value it measured on the CPU:
 - codec round trip: >= 95 % of codes equal to f32 and decode relative RMS
   < 0.15, the gates of ``tests/test_bf16.py:52-83`` (measured: 1.0 and
   0.0041; and 1.0 of the codes equal to the JAX bf16 codes);
+- K4's bf16 kernel emulated by its index maps (its raw pieces, layout,
+  descriptors and B images) against the f32 plain versions: within 1e-5 of
+  max;
 - the plain versions of K4 (forward, dx) and K5 in bf16 against the JAX
   Pallas kernels in interpret mode on bf16 inputs: >= 99 % of the outputs
   bit-equal and every other within 1 bf16 ulp or, where the sum nearly
@@ -251,9 +254,151 @@ def test_bf16_plain_versions_add_the_bias_after_rounding():
 
 def test_bf16_weight_packing_moves_the_values():
     """The bf16 packings are permutations (plus zero padding) of the weights:
-    every weight appears once, unrounded."""
+    every weight appears once, unrounded; K4's input-gradient packing holds
+    every weight of both phases once, and none of phase 1's zero taps."""
     w = torch.randn(32, 32, 3, 9, generator=torch.Generator().manual_seed(0)).to(BF16)
-    for packed in (dck.pack_weight_bf16(w.permute(1, 2, 3, 0)[None]), k5.pack_weight_bf16(w)):
+    for packed in (dck.pack_weight_bf16(w.permute(1, 2, 3, 0)[None], 2),
+                   dck.pack_weight_bf16(dck.pack_dx_weight(w, 2), 1), k5.pack_weight_bf16(w)):
         vals = packed.float().reshape(-1)
         assert packed.dtype == BF16
         assert torch.equal(vals[vals != 0].sort().values, w.float().reshape(-1).sort().values)
+    # 27 taps: 14 k-steps; dx at sf 2: 15 taps of phase 0 in 8, 12 of phase 1 in 6
+    assert dck.pack_weight_bf16(dck.pack_dx_weight(w, 2), 1).shape == (1, 4, 14, 512)
+
+
+# K4's bf16 kernel (csrc/disc_conv_bf16.cu), emulated by its index maps: the
+# tile grid, the 16-byte-aligned raw pieces, the channels-last layout, the
+# wgmma descriptors and the B images
+ROWS, COLS, CC = 32, 8, 8
+
+
+def _k4_bf16_geometry(x_shape, w_shape, stride, dilation, padding, dx):
+    """The correlation the kernel runs (csrc/disc_conv_bf16.cu ``geometry``)."""
+    (B, Cin, T, F), (Cout, _, KT, KF) = x_shape, w_shape
+    sf, dt, (pt, pf) = stride[1], dilation[0], padding
+    To, Fo = dck.out_size(T, F, KT, KF, sf, dt, pt, pf)
+    if not dx:
+        g = dict(S=sf, NJ=KF, P=1, C=Cin, O=Cout, Tin=T, Fin=F, Tout=To, Fout=Fo, t_off=-pt,
+                 col_off=-pf, OS=1, q=[(0, Fo, 0)])
+    else:
+        NJ = -(-KF // sf)
+        g = dict(S=1, NJ=NJ, P=sf, C=Cout, O=Cin, Tin=To, Fin=Fo, Tout=T, Fout=F,
+                 t_off=pt - (KT - 1) * dt, col_off=-(NJ - 1), OS=sf,
+                 q=[(-((r - pf) // sf), (F - 1 + pf - r) // sf + 1, r - pf) for r in range(sf)])
+    g.update(B=B, KT=KT, dt=dt, R=ROWS + (KT - 1) * dt)
+    return g
+
+
+def _emulate_k4_bf16(inp: torch.Tensor, image: torch.Tensor, g: dict, base_e: int):
+    """The kernel's f32 sums (before any rounding) from ``inp`` (the
+    correlation's input, bf16) and its B images, with ``inp`` placed at an
+    address of ``base_e`` mod 8 elements: every raw piece the kernel does not
+    copy holds NaN, as does memory around ``inp``, so a value the layout
+    should have masked shows. A tile is ROWS rows of one image and 16 / P
+    correlation columns; its m64 tiles are 8 rows x 8 columns, at P 1 two
+    column blocks, at P 2 the two phases of the same columns."""
+    S, NJ, P, KT, dt, R = g['S'], g['NJ'], g['P'], g['KT'], g['dt'], g['R']
+    B, C, Tin, Fin = inp.shape
+    QC = 16 // P
+    W = (QC - 1) * S + NJ
+    half = (W + 1) // 2 if S == 2 else W
+    npiece = (W + 14) // 8
+    flat = torch.cat([torch.full((16,), float('nan')), inp.float().reshape(-1),
+                      torch.full((16,), float('nan'))])
+    steps = [dck.bf16_steps(S, KT, NJ, P, r) for r in range(P)]
+    scol = lambda j: dck.bf16_staged_col(S, NJ, j)
+    col_rel = torch.tensor([2 * sc if sc < half else 2 * (sc - half) + 1 for sc in range(W)]
+                           if S == 2 else list(range(W)))
+    q_start = min(lo for lo, _, _ in g['q'])
+    n_qb = -(-(max(hi for _, hi, _ in g['q']) - q_start) // QC)
+    n_chunks, o_tiles = -(-C // CC), image.shape[0]
+    out = torch.zeros(B, g['O'], g['Tout'], g['Fout'])
+    for b in range(B):
+        for tb in range(-(-g['Tout'] // ROWS)):
+            for qb in range(n_qb):
+                t0, q0 = tb * ROWS, q_start + qb * QC
+                wbase, rbase = q0 * S + g['col_off'], t0 + g['t_off']
+                acc = torch.zeros(o_tiles, ROWS // 8, 2, 64, 32)
+                for chunk in range(n_chunks):
+                    raw = torch.full((CC, R, 8 * npiece), float('nan'))
+                    pairs = torch.zeros(R, W, CC)
+                    for c in range(CC):
+                        ch = chunk * CC + c
+                        for r in range(R):
+                            row = rbase + r
+                            if ch >= C or not 0 <= row < Tin:
+                                continue
+                            idx = ((b * C + ch) * Tin + row) * Fin + wbase
+                            shift = (base_e + idx) % 8
+                            for pc in range(npiece):
+                                col0 = wbase - shift + 8 * pc
+                                if col0 < Fin and col0 + 8 > 0:
+                                    at = idx - shift + 8 * pc + 16
+                                    raw[c, r, 8 * pc:8 * pc + 8] = flat[at:at + 8]
+                            cols = wbase + col_rel
+                            ok = (cols >= 0) & (cols < Fin)
+                            pairs[r, ok, c] = raw[c, r, shift + col_rel[ok]]
+                    pairs = pairs.reshape(-1, CC)
+                    for ot in range(o_tiles):
+                        for rg in range(ROWS // 8):              # 8-row groups
+                            for v in range(2):                   # column block or phase
+                                r_ph = v if P == 2 else 0
+                                base = len(steps[0]) if P == 2 and v == 1 else 0
+                                start = 8 * rg * W + (0 if P == 2 else 8 * v)
+                                for s, (t0_, t1_) in enumerate(steps[r_ph]):
+                                    off = t0_[0] * dt * W + scol(t0_[1])
+                                    lbo = 0 if t1_ is None else (t1_[0] * dt * W + scol(t1_[1])
+                                                                 - off)
+                                    assert lbo >= 0       # a descriptor offset is unsigned
+                                    m = torch.arange(64)
+                                    rows_a = start + off + (m // 8) * W + m % 8
+                                    A = torch.cat([pairs[rows_a], pairs[rows_a + lbo]], 1)
+                                    e = image[ot, chunk, base + s].float()
+                                    n, k = torch.arange(32)[None, :], torch.arange(16)[:, None]
+                                    Bm = e[(n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8]
+                                    acc[ot, rg, v] += A @ Bm
+                for ot in range(o_tiles):
+                    o = ot * 32 + torch.arange(32)
+                    ok = o < g['O']
+                    for rg in range(ROWS // 8):
+                        for v in range(2):
+                            r_ph = v if P == 2 else 0
+                            lo, hi, ooff = g['q'][r_ph]
+                            for m in range(64):
+                                t = t0 + 8 * rg + m // 8
+                                q = q0 + m % 8 + (0 if P == 2 else 8 * v)
+                                if t < g['Tout'] and lo <= q < hi:
+                                    out[b, o[ok], t, q * g['OS'] + ooff] = acc[ot, rg, v, m][ok]
+    return out
+
+
+@pytest.mark.parametrize('B,Cin,Cout,T,F,k,stride,dilation,padding,base_e', [
+    (3, 12, 40, 13, 33, (3, 9), (1, 2), (1, 1), (1, 4), 3),      # odd B, ragged C and O
+    (1, 16, 32, 40, 65, (3, 9), (1, 2), (2, 1), (2, 4), 0),      # two row tiles
+    (1, 8, 32, 19, 17, (3, 9), (1, 2), (4, 1), (4, 4), 5),
+    (2, 8, 32, 18, 33, (3, 3), (1, 1), (1, 1), (1, 1), 1),
+])
+def test_k4_bf16_kernel_index_maps_hold_the_plain_versions(B, Cin, Cout, T, F, k, stride,
+                                                           dilation, padding, base_e):
+    """The bf16 kernel's data movement, emulated on the CPU from its index
+    maps (16-byte pieces of rows of any alignment, the channels-last layout
+    with even columns first at F-stride 2, the wgmma descriptors of each
+    k-step, the B images of ``pack_weight_bf16``), summed in f32: forward
+    and input gradient (both phases at sf 2) within 1e-5 of max of the f32
+    plain versions, at 2^k + 1 columns, T dilations 1, 2 and 4 and rows that
+    start at odd addresses."""
+    gen = torch.Generator().manual_seed(T * F + Cin)
+    x = torch.randn(B, Cin, T, F, generator=gen).to(BF16)
+    w = (torch.randn(Cout, Cin, *k, generator=gen) / 10).to(BF16)
+    geo = (stride, dilation, padding)
+    y = dck.disc_conv_forward_reference(x.float(), w.float(), None, *geo)
+    gy = torch.randn(y.shape, generator=gen).to(BF16)
+    fwd = _k4_bf16_geometry(x.shape, w.shape, *geo, dx=False)
+    got = _emulate_k4_bf16(x, dck.pack_weight_bf16(w.permute(1, 2, 3, 0)[None], stride[1]),
+                           fwd, base_e)
+    assert (got - y).abs().max() <= 1e-5 * y.abs().max()
+    dxg = _k4_bf16_geometry(x.shape, w.shape, *geo, dx=True)
+    got = _emulate_k4_bf16(gy, dck.pack_weight_bf16(dck.pack_dx_weight(w, stride[1]), 1), dxg,
+                           base_e)
+    ref = dck.disc_conv_input_grad_reference(gy.float(), w.float(), x.shape, *geo)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

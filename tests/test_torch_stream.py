@@ -10,6 +10,15 @@ Bars, those of tests/test_streaming.py: codes exactly equal, floats to atol
 uneven chunk pattern, a stream started in JAX and continued in the port
 (``convert.streaming_state_from_jax``), the stateful LSTM against
 ``streaming._stream_lstm`` (atol 1e-5), and the constraint errors.
+
+bf16 (the mirror of tests/test_streaming.py's
+``test_streaming_codec_bf16_matches_offline``: n_filters 8, n_q 4, 3 kbps,
+48 hops of a 313 Hz sine, the JAX package's uneven chunks): the port's
+streamed codes equal its offline bf16 codes and the JAX bf16 stream's, the
+wav is within 2e-2 of offline; a one-chunk stream's latent is the offline
+latent bit for bit, and the chunked stream's wav is within 1e-3 of offline
+by relative norm while the same weights streamed in f32 are over 1e-3 away
+(measured: 7.2e-5 and 5.9e-3), so the stream does run in bf16.
 """
 
 import jax
@@ -24,6 +33,7 @@ from encodec_pytorch_tpu_torch import convert
 from encodec_pytorch_tpu_torch import streaming as tstreaming
 from encodec_pytorch_tpu_torch.models.model import EncodecModel
 from encodec_pytorch_tpu_torch.ops.lstm import SLSTM
+from test_streaming import _chunks
 from test_torch_ops import numpy_params
 
 torch.set_num_threads(1)
@@ -244,3 +254,76 @@ def test_constraint_errors(models):
             tstreaming.StreamingSEANet(tm.decoder)
     finally:
         convtr.trim_right_ratio = 1.
+
+
+BF16 = dict(target_bandwidths=[1.5, 3., 6.], sample_rate=24000, channels=1, causal=True,
+            model_norm='weight_norm', n_q=4, n_filters=8)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def test_bf16_stream_matches_offline_and_jax():
+    jm = JaxModel._get_model(audio_normalize=False, segment=None, dtype=jnp.bfloat16, **BF16)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), example_length=2400))
+    rng = np.random.default_rng(6)
+    n_q, bins, dim = shapes['quantizer'].embed.shape
+    embed = rng.standard_normal((n_q, bins, dim)).astype(np.float32)
+    variables = {
+        'params': numpy_params(shapes['params'], rng),
+        'quantizer': shapes['quantizer']._replace(
+            inited=np.ones(n_q, np.float32), cluster_size=np.ones((n_q, bins), np.float32),
+            embed=embed, embed_avg=embed),
+    }
+    jm.set_target_bandwidth(3.)
+    ports = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        ports[dtype] = EncodecModel._get_model(dtype=dtype, **BF16)
+        ports[dtype].load_state_dict(convert.state_dict_from_jax(variables), strict=True)
+        ports[dtype].eval().set_target_bandwidth(3.)
+    tm = ports[torch.bfloat16]
+
+    T = HOP * 48
+    wav = (0.5 * np.sin(np.arange(T) / 24000.0 * 2 * np.pi * 313)).reshape(1, 1, T).astype(
+        np.float32)
+    jcodec = jstreaming.StreamingCodec(jm)
+    sizes = _chunks(T, jcodec.min_first_chunk_samples, HOP)
+    enc, dec = jcodec.init_state(1)
+    jax_codes, pos = [], 0
+    for i, n in enumerate(sizes):
+        _, codes, enc, dec = jcodec.roundtrip_chunk(variables, enc, dec,
+                                                    jnp.asarray(wav[..., pos:pos + n]),
+                                                    first=(i == 0))
+        jax_codes.append(np.asarray(codes))
+        pos += n
+
+    def stream(model):
+        codec = tstreaming.StreamingCodec(model)
+        enc, dec = codec.init_state(1)
+        outs, codes, pos = [], [], 0
+        for i, n in enumerate(sizes):
+            out, c, enc, dec = codec.roundtrip_chunk(enc, dec, x[..., pos:pos + n],
+                                                     first=(i == 0))
+            outs.append(out)
+            codes.append(c)
+            pos += n
+        assert all(t.dtype == torch.float32 for t in jax.tree.leaves((enc, dec)))
+        return torch.cat(codes, -1), torch.cat(outs, -1)
+
+    x = torch.from_numpy(wav)
+    codes, out = stream(tm)
+    with torch.no_grad():
+        offline_codes = tm.encode(x)[0][0]
+        offline = tm(x)
+        latent = tm.encoder(x)
+    np.testing.assert_array_equal(codes.numpy(), offline_codes.numpy())
+    np.testing.assert_array_equal(codes.numpy(), np.concatenate(jax_codes, -1))
+    np.testing.assert_allclose(out.numpy(), offline.numpy(), atol=2e-2, rtol=2e-2)
+    # one chunk: the offline arithmetic bit for bit; chunked, only the f32
+    # summation order of CPU convs of other lengths differs
+    net = tstreaming.StreamingSEANet(tm.encoder)
+    one, _ = net.apply(net.init_state(1), x, first=True)
+    assert torch.equal(one, latent)
+    assert _rel(out, offline) < 1e-3
+    assert _rel(stream(ports[torch.float32])[1], offline) > 1e-3

@@ -18,7 +18,8 @@ step, on the CPU, against the JAX package's ``build_train_step``.
   Adam's moments and step counts, codebooks, the balancer's EMA) with
   ``skipped_nonfinite`` 1; a clean batch then trains with 0, bit-equal to the
   same step unguarded.
-- The trainer's config keys reach the step.
+- The trainer's config keys reach the step; a `datasets.dataset` other than
+  `csv` raises.
 """
 
 import copy
@@ -205,3 +206,16 @@ def test_trainer_config_keys_reach_the_step(tmp_path, monkeypatch):
         trainer_module.Trainer(load_config(base + ['tpu.grad_accum_steps=3']), device='cpu')
     with pytest.raises(ValueError, match='float32 or bfloat16'):
         trainer_module.Trainer(load_config(base + ['tpu.compute_dtype=float16']), device='cpu')
+
+
+@pytest.mark.parametrize('dataset', ['multi_channel', 'unknown'])
+def test_trainer_refuses_a_dataset_it_does_not_run(dataset):
+    """Only the CSV dataset is ported: any other ``datasets.dataset`` raises
+    before a dataset is built, instead of training on the CSV set."""
+    config = load_config([f'datasets.dataset={dataset}'])
+    with pytest.raises(NotImplementedError, match='Queue 1, item 2'):
+        trainer_module.check_supported(config)
+    with pytest.raises(NotImplementedError, match='not ported yet'):
+        trainer_module.Trainer(config, device='cpu')
+    trainer_module.check_supported(load_config(['datasets.dataset=csv']))
+    trainer_module.check_supported(load_config())
