@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 24 kHz codec path, its streaming and serving path,
-LM entropy coding, its GAN training step (in f32, and in the default set's
+"""Drive the PyTorch port's 24 kHz codec path, its streaming and serving path
+(in f32, and with int8 weight-only weights), LM entropy coding, its GAN training step (in f32, and in the default set's
 bf16 with K4 and K5 in their bf16 forms), the trainer's state (checkpoints,
 resume after SIGTERM, the test loop, trained-checkpoint loading, weight-norm
 folding), the 48 kHz stereo family (codec, CodecServer, training step),
@@ -74,6 +74,27 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    ``CodecServer`` with length buckets takes 8 concurrent round trips of mixed
    lengths: each >= 20 dB SNR against a direct call except in its final hop
    (the reflect model is tail-exact), with coalescing.
+6a. int8 weight-only serving on phase 3's seeded model: the int8 twin's
+   weight bytes against the fold's (< 0.35, the JAX package's bar) and
+   ``torch.cuda.memory_allocated`` after loading each; ``LiveCodec(model,
+   weights='int8')`` on 10 s at 6 and 24 kbps, B 1 and 16: codes and decode
+   equal, bit for bit, to the f32 path on the dequantized weights
+   (``prepare.dequantize_weights``), and (information) the code share and
+   decode relative RMS against the raw f32 model. K2's int8 entry at (T 750,
+   B 1 and 16) and the carried tick (T 4, B 16), K3's on the twin's 8 blocks
+   of a 10 s encode + decode and its 4 encoder blocks at the tick: each
+   against its plain version and against the f32 kernel on the dequantized
+   weights (max |d| 0 expected), timed by CUDA events and on the device
+   beside the f32 kernel, cuDNN (``nn.LSTM``, or the block's sequence) on the
+   dequantized weights and the bound with the weights' bytes counted as
+   int8. Then phase 6's 16-stream ``StreamingServer`` on the twin: codes
+   >= 99 % of the offline int8 encode and the audio within atol 2e-5, rtol
+   1e-5 of the offline int8 decode of the stream's own codes (the bar of
+   ``tests/test_streaming_server.py``'s int8 test; a code flipped at a
+   near-tie between the streamed and the offline latent changes the audio
+   far more); and a ``CodecServer`` over the int8 ``LiveCodec``. Over the
+   int8 codec, streams and server, K1 and the int8 entries of K2 and K3 are
+   launched, and the f32 entries of K2 and K3 never.
 6b. LM entropy coding at full width: a seeded full-width LM (n_q 32, card
    1024, dim 200, 8 heads, 5 layers, past_context 262) written as a
    reference-layout ``.th``; a 10 s clip at 6 kbps through ``cli -l`` on each
@@ -222,7 +243,8 @@ the script started), then a JSON line with each kernel's numbers (launches:
 the 24 and 48 kHz codec CLIs', servers' and LM codec runs' and phase 10's for
 K1, K2 and K3; both training paths' and phase 10's for K4; the 48 kHz training
 steps' for K5; the on-device LM route's at 24 and 48 kHz for K6, whose ``ms`` is
-a decode step's; K1's and K2's entries list
+a decode step's; phase 6a's int8 serving path's for the int8 entries of K2 and
+K3, whose ``max_abs_err_vs_f32`` is against the f32 kernels; K1's and K2's entries list
 every timed shape under ``shapes``, K3's its 8 offline and 4 tick shapes,
 K4's the totals of both configs, K5's its 9 shapes; the bf16 forms of K4 and
 K5, launched on the bf16 training path and the 48 kHz bf16 step, their
@@ -693,6 +715,8 @@ def plain_path():
     from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
     swaps = [(lstm_kernel, 'lstm_recurrence', lstm_kernel.lstm_recurrence_reference),
              (resblock_kernel, 'resblock', resblock_kernel.resblock_reference),
+             (lstm_kernel, 'lstm_recurrence_int8', lstm_kernel.lstm_recurrence_int8_reference),
+             (resblock_kernel, 'resblock_int8', resblock_kernel.resblock_int8_reference),
              (rvq_kernel, 'rvq_encode',
               lambda x, embed, esq=None: rvq_kernel.rvq_encode_reference(x, embed)),
              (dck, 'disc_conv_forward', dck.disc_conv_forward_reference),
@@ -712,22 +736,27 @@ def plain_path():
 CKPT = 'encodec_24khz_seeded.th'
 CKPT48 = 'encodec_48khz_seeded.th'
 CODEC_KERNELS = ('rvq_encode', 'lstm_recurrence', 'resblock')
+# the entries that take the int8 twin's weights (prepare.quantize_weights)
+INT8_KERNELS = ('lstm_recurrence_int8', 'resblock_int8')
 
 
 def _codec_entries():
     from encodec_pytorch_tpu_torch.ops import lstm_kernel, resblock_kernel, rvq_kernel
     return {'rvq_encode': rvq_kernel.rvq_encode, 'lstm_recurrence': lstm_kernel.lstm_recurrence,
-            'resblock': resblock_kernel.resblock}
+            'resblock': resblock_kernel.resblock,
+            'lstm_recurrence_int8': lstm_kernel.lstm_recurrence_int8,
+            'resblock_int8': resblock_kernel.resblock_int8}
 
 
 def reset_counts():
-    """Set the codec path's kernel launch counters to 0."""
+    """Set the codec path's kernel launch counters (the int8 entries' too) to 0."""
     for fn in _codec_entries().values():
         fn.launches = 0
 
 
-def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _codec_entries().items()}
+def read_counts(names=CODEC_KERNELS) -> dict:
+    entries = _codec_entries()
+    return {name: entries[name].launches for name in names}
 
 
 def write_seeded_checkpoint(torch, seed: int, path: Path, name: str = 'encodec_24khz'):
@@ -873,34 +902,30 @@ FIRST_HOPS = 8
 STREAM_HOPS = FIRST_HOPS + 54 * CHUNK_HOPS     # 224 hops, 2.99 s
 
 
-def serving_phase(torch, seed, ckpt: Path):
-    """Phase 6: the StreamingServer at full width, then a CodecServer.
-    Returns the kernels' launch counts of the streaming run."""
+def serve_streams(torch, model, clips: np.ndarray, names=CODEC_KERNELS):
+    """Phase 6's streaming run on ``model``: a ``StreamingServer`` of
+    ``STREAMS`` slots and ``CHUNK_HOPS`` hops at 6 kbps, warmed up by one short
+    stream, then one stream a clip of ``clips``, joining at staggered ticks
+    with first chunks of ``FIRST_HOPS`` hops. Returns (each stream's (audio,
+    codes), the steady chunks' latencies in s, the wall s, the server's stats,
+    the launches of the kernels ``names`` over the run, and those inside the
+    batched step alone)."""
     import threading
 
-    from encodec_pytorch_tpu_torch.models.model import encodec_model_24khz
-    from encodec_pytorch_tpu_torch.serve import CodecServer, LiveCodec, StreamingServer
+    from encodec_pytorch_tpu_torch.serve import StreamingServer
 
-    model = encodec_model_24khz(checkpoint=ckpt, device='cuda')
-    model.set_target_bandwidth(6.)
     hop = model.encoder.hop_length
-    clips = make_clip(seed + 200, batch=STREAMS, seconds=STREAM_HOPS * hop / SR)
-    x = torch.from_numpy(clips).cuda()
-    frames = model.encode(x)
-    offline_codes = frames[0][0].cpu().numpy()                         # [16, 8, 224]
-    offline = model.decode(frames).cpu().numpy()                       # [16, 1, T]
-
     server = StreamingServer(model, max_streams=STREAMS, chunk_hops=CHUNK_HOPS,
                              max_wait_ms=5.0, bandwidth=6., device='cuda')
     first, chunk = FIRST_HOPS * hop, server.chunk_samples
     check(first >= server.min_first_chunk_samples, 'first chunk below the minimum')
-    mux_counts = dict.fromkeys(CODEC_KERNELS, 0)
+    mux_counts = dict.fromkeys(names, 0)
     real_mux = server._mux
 
     def counted_mux(*args):
-        before = read_counts()
+        before = read_counts(names)
         out = real_mux(*args)
-        for k, v in read_counts().items():
+        for k, v in read_counts(names).items():
             mux_counts[k] += v - before[k]
         return out
     server._mux = counted_mux
@@ -943,11 +968,31 @@ def serving_phase(torch, seed, ckpt: Path):
             t.join(timeout=300)
         wall = time.perf_counter() - t0
         stats = server.stats()
-    launches = read_counts()
+    launches = read_counts(names)
     check(not errors and all(o is not None for o in outputs), f'streams failed: {errors}')
+    return outputs, sorted(latencies), wall, stats, launches, mux_counts
+
+
+def serving_phase(torch, seed, ckpt: Path):
+    """Phase 6: the StreamingServer at full width, then a CodecServer.
+    Returns the kernels' launch counts of the streaming run."""
+    import threading
+
+    from encodec_pytorch_tpu_torch.models.model import encodec_model_24khz
+    from encodec_pytorch_tpu_torch.serve import CodecServer, LiveCodec
+
+    model = encodec_model_24khz(checkpoint=ckpt, device='cuda')
+    model.set_target_bandwidth(6.)
+    hop = model.encoder.hop_length
+    clips = make_clip(seed + 200, batch=STREAMS, seconds=STREAM_HOPS * hop / SR)
+    x = torch.from_numpy(clips).cuda()
+    frames = model.encode(x)
+    offline_codes = frames[0][0].cpu().numpy()                         # [16, 8, 224]
+    offline = model.decode(frames).cpu().numpy()                       # [16, 1, T]
+
+    outputs, lat, wall, stats, launches, mux_counts = serve_streams(torch, model, clips)
     same = float(np.mean([np.mean(o[1] == offline_codes[i]) for i, o in enumerate(outputs)]))
     snrs = [snr_db(offline[i], o[0]) for i, o in enumerate(outputs)]
-    lat = sorted(latencies)
     audio_s = STREAMS * clips.shape[-1] / SR
     log(f'serving: StreamingServer {STREAMS} slots x {CHUNK_HOPS} hops at 6 kbps, {STREAMS} '
         f'streams of {clips.shape[-1] / SR:.3f} s (first chunk {FIRST_HOPS} hops): {audio_s:.2f} '
@@ -991,6 +1036,285 @@ def serving_phase(torch, seed, ckpt: Path):
     check(worst_snr >= SNR_MIN_DB and cstats['batches'] < len(reqs),
           'CodecServer results disagree with direct calls, or nothing coalesced')
     return launches
+
+
+INT8_BYTES_SHARE = 0.35      # tests/test_prepare.py's bar: int8 params below this share of f32
+STREAM_ATOL, STREAM_RTOL = 2e-5, 1e-5    # tests/test_streaming_server.py's int8 bar
+
+
+@contextlib.contextmanager
+def counting(names, into: dict):
+    """Add to ``into`` the launches of the kernels ``names`` inside the block."""
+    before = read_counts(names)
+    try:
+        yield
+    finally:
+        for k, v in read_counts(names).items():
+            into[k] = into.get(k, 0) + v - before[k]
+
+
+def _timed(torch, fn) -> tuple:
+    """(ms of a call by CUDA events, its device ms)."""
+    return cuda_ms(torch, fn), device_ms(torch, fn)
+
+
+def k2_int8_check(torch, gen) -> dict:
+    """K2's int8-W_hh entry at the serving shapes (T 750, B 1 and 16 from the
+    zero state; the carried tick, T 4, B 16) against its plain version and
+    against the f32 entry on the dequantized matrix (the same bits expected),
+    timed beside the f32 entry and cuDNN ``nn.LSTM`` on the dequantized
+    weights. Returns the summary at (T 750, B 1), every shape under
+    ``shapes``."""
+    from encodec_pytorch_tpu_torch.ops import lstm_kernel as lk
+    from encodec_pytorch_tpu_torch.ops.int8 import dequantize_int8, quantize_int8
+    H = C = 512
+    bound = 1 / H ** 0.5
+    summary, shapes = None, []
+    for T, B, carried in ((750, 1, False), (750, 16, False), (4, 16, True)):
+        x = torch.randn(T, B, C, generator=gen, device='cuda')
+        w_ih, s_ih = quantize_int8((torch.rand(4 * H, C, generator=gen, device='cuda') * 2 - 1)
+                                   * bound)
+        w_q8, scale = quantize_int8((torch.rand(4 * H, H, generator=gen, device='cuda') * 2 - 1)
+                                    * bound)
+        w_hh = dequantize_int8(w_q8, scale)
+        w_ih = dequantize_int8(w_ih, s_ih)
+        bias = (torch.rand(4 * H, generator=gen, device='cuda') * 2 - 1) * bound
+        state = ((torch.randn(B, H, generator=gen, device='cuda') * 0.5,
+                  torch.randn(B, H, generator=gen, device='cuda')) if carried else (None, None))
+        xp = (torch.matmul(x, w_ih.t()) + bias).contiguous()
+        h, c = lk.lstm_recurrence_int8(xp, w_q8, scale, *state)
+        h32, c32 = lk.lstm_recurrence(xp, w_hh, *state)
+        hp, cp = lk.lstm_recurrence_int8_reference(xp, w_q8, scale, *state)
+        torch.cuda.synchronize()
+        err = max(float((h - hp).abs().max()), float((c - cp).abs().max()))
+        err32 = max(float((h - h32).abs().max()), float((c - c32).abs().max()))
+        cudnn = torch.nn.LSTM(C, H).cuda()
+        with torch.no_grad():
+            cudnn.weight_ih_l0.copy_(w_ih)
+            cudnn.weight_hh_l0.copy_(w_hh)
+            cudnn.bias_ih_l0.copy_(bias)
+            cudnn.bias_hh_l0.zero_()
+            hx = None if not carried else (state[0][None].contiguous(), state[1][None].contiguous())
+            library_ms = cuda_ms(torch, lambda: cudnn(x, hx))
+        ms, dev = _timed(torch, lambda: lk.lstm_recurrence_int8(xp, w_q8, scale, *state))
+        ms32, dev32 = _timed(torch, lambda: lk.lstm_recurrence(xp, w_hh, *state))
+        plain_ms = cuda_ms(torch, lambda: lk.lstm_recurrence_int8_reference(xp, w_q8, scale,
+                                                                           *state),
+                           runs=5, warmup=1)
+        # W_hh read once as int8 with its scales; xp, h and the states in f32
+        b_ms, b_by = bound_ms(2.0 * T * B * 4 * H * H,
+                              4.0 * (T * B * 4 * H + T * B * H + (3 if carried else 1) * B * H)
+                              + 4 * H * H + 4.0 * 4 * H)
+        kind = 'carried state' if carried else 'zero state'
+        log(f'K2 int8 lstm_recurrence_int8 {kind} T={T} B={B} H={H}: max |h, c_T| vs plain '
+            f'{err:.3e}, vs the f32 kernel on the dequantized W_hh {err32:.3e}; int8 {ms:.4f} ms '
+            f'(on the device {fmt_ms(dev)}), f32 kernel {ms32:.4f} ms (on the device '
+            f'{fmt_ms(dev32)}), cuDNN nn.LSTM layer {library_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+            f'bound {b_ms:.4f} ms ({b_by})')
+        check(np.isfinite(err) and err <= K2_TOL and err32 == 0,
+              f'K2 int8 disagrees at T={T} B={B} ({kind}): plain {err}, f32 kernel {err32}')
+        shapes.append(dict(T=T, B=B, carried=carried, ms=ms, device_ms=dev, f32_ms=ms32,
+                           f32_device_ms=dev32, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=b_ms, max_abs_err=err, max_abs_err_vs_f32=err32))
+        if summary is None:
+            summary = dict(max_abs_err=err, max_abs_err_vs_f32=err32, ms=ms, device_ms=dev,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=library_ms)
+        summary['max_abs_err'] = max(summary['max_abs_err'], err)
+        summary['max_abs_err_vs_f32'] = max(summary['max_abs_err_vs_f32'], err32)
+    summary['shapes'] = shapes
+    return summary
+
+
+def k3_int8_check(torch, seed, qmodel) -> dict:
+    """K3's int8-weight entry on the int8 twin's 8 blocks at the shapes of a
+    10 s encode + decode (B 1), and on its 4 encoder blocks at the tick's (B
+    16, with a halo), against its plain version and the f32 entry on the
+    dequantized weights (the same bits expected), timed beside the f32 entry
+    and the cuDNN sequence on the dequantized weights. Returns the summary
+    over the 8 offline blocks, the shapes under ``shapes``."""
+    from encodec_pytorch_tpu_torch.models.seanet import SEANetResnetBlock
+    from encodec_pytorch_tpu_torch.ops import resblock_kernel as rk
+    from encodec_pytorch_tpu_torch.ops.int8 import dequantize_int8
+
+    calls = []
+    blocks = [m for m in qmodel.modules() if isinstance(m, SEANetResnetBlock)]
+    hooks = [b.register_forward_pre_hook(lambda m, a: calls.append((a[0].contiguous(), m)))
+             for b in blocks]
+    with torch.no_grad():
+        qmodel(torch.from_numpy(make_clip(seed + 11, batch=1)).cuda())
+    for h in hooks:
+        h.remove()
+    check(len(calls) == 8 and all(m.int8 for _, m in calls),
+          f'expected 8 int8 resblock calls, found {len(calls)}')
+    gen = torch.Generator(device='cuda').manual_seed(seed + 13)
+    cases = [('offline', x, m.fused_weights(), None) for x, m in calls]
+    for x, m in calls[:4]:   # the encoder's blocks at the tick: 16 slots x 4 hops
+        T = 1280 * x.shape[-1] // calls[0][0].shape[-1]
+        xt = torch.randn(16, x.shape[1], T, generator=gen, device='cuda') * x.std()
+        left = torch.randn(16, x.shape[1], 2, generator=gen, device='cuda') * x.std()
+        cases.append(('tick', xt, m.fused_weights(), left))
+    tot = dict.fromkeys(('ms', 'device_ms', 'f32_ms', 'f32_device_ms', 'plain_ms', 'library_ms',
+                         'bound_ms'), 0.0)
+    worst = worst32 = 0.0
+    shapes = []
+    for name, x, w, left in cases:
+        k1, s1, b1, k2, s2, b2, ks, ss, bs = w
+        w32 = (dequantize_int8(k1, s1), b1, dequantize_int8(k2, s2), b2, dequantize_int8(ks, ss),
+               bs)
+        kw = dict(dilation=1, causal=True, pad_mode='reflect', left=left)
+        got = rk.resblock_int8(x, *w, **kw)
+        ref = rk.resblock_int8_reference(x, *w, **kw)
+        f32 = rk.resblock(x, *w32, **kw)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        err32 = float((got - f32).abs().max())
+        ms, dev = _timed(torch, lambda: rk.resblock_int8(x, *w, **kw))
+        ms32, dev32 = _timed(torch, lambda: rk.resblock(x, *w32, **kw))
+        plain_ms = cuda_ms(torch, lambda: rk.resblock_int8_reference(x, *w, **kw))
+        library_ms = cuda_ms(torch, lambda: rk.resblock_reference(x, *w32, **kw))
+        B, C, T = x.shape
+        flops = 6.0 * C * C * B * T
+        nbytes = (4.0 * 2 * B * C * T + sum(t.numel() for t in (k1, k2, ks))
+                  + 4.0 * sum(t.numel() for t in (s1, b1, s2, b2, ss, bs)))
+        b_ms, b_by = bound_ms(flops, nbytes)
+        log(f'K3 int8 resblock_int8 {name} x {tuple(x.shape)}: max |d| vs plain {err:.3e} '
+            f'({rel:.2e} of max), vs the f32 kernel on the dequantized weights {err32:.3e}; '
+            f'int8 {ms:.4f} ms (on the device {fmt_ms(dev)}), f32 kernel {ms32:.4f} ms (on the '
+            f'device {fmt_ms(dev32)}), plain (dequantize, cuDNN sequence) {plain_ms:.4f} ms, '
+            f'cuDNN sequence on the dequantized weights {library_ms:.4f} ms, bound {b_ms:.4f} ms '
+            f'({b_by}); TMA (C, H multiples of 16): {C % 16 == 0 and k1.shape[0] % 16 == 0}')
+        check(rel <= K3_TOL_REL and err32 == 0,
+              f'K3 int8 disagrees: {name} {tuple(x.shape)}: plain {rel}, f32 kernel {err32}')
+        worst, worst32 = max(worst, err), max(worst32, err32)
+        entry = dict(case=name, shape=list(x.shape), ms=ms, device_ms=dev, f32_ms=ms32,
+                     f32_device_ms=dev32, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=b_ms, max_abs_err=err, max_abs_err_vs_f32=err32)
+        shapes.append(entry)
+        if name == 'offline':   # a total is not measured if one of its terms is not
+            for k in tot:
+                tot[k] = None if tot[k] is None or entry[k] is None else tot[k] + entry[k]
+    log(f'K3 int8 over the 8 blocks of a 10 s encode + decode: int8 {fmt_ms(tot["ms"])} (on the '
+        f'device {fmt_ms(tot["device_ms"])}), f32 kernel {fmt_ms(tot["f32_ms"])} (on the device '
+        f'{fmt_ms(tot["f32_device_ms"])}), plain {fmt_ms(tot["plain_ms"])}, cuDNN sequence '
+        f'{fmt_ms(tot["library_ms"])}, bound {fmt_ms(tot["bound_ms"])}')
+    return dict(max_abs_err=worst, max_abs_err_vs_f32=worst32, ms=tot['ms'],
+                device_ms=tot['device_ms'], plain_ms=tot['plain_ms'], bound_ms=tot['bound_ms'],
+                bound_by='operations', library_ms=tot['library_ms'], f32_ms=tot['f32_ms'],
+                shapes=shapes)
+
+
+def int8_phase(torch, seed, ckpt: Path, gen):
+    """Phase 6a: int8 weight-only serving on phase 3's seeded model. Returns
+    (K2 int8's summary, K3 int8's summary, the int8 path's launches)."""
+    import threading
+
+    from encodec_pytorch_tpu_torch import prepare
+    from encodec_pytorch_tpu_torch.models.model import encodec_model_24khz
+    from encodec_pytorch_tpu_torch.serve import CodecServer, LiveCodec
+
+    names = CODEC_KERNELS + INT8_KERNELS
+    model = encodec_model_24khz(checkpoint=ckpt, device='cuda')
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    live_fold = LiveCodec(model, weights='fold', device='cuda')
+    fold_mem = torch.cuda.memory_allocated() - base
+    live = LiveCodec(model, weights='int8', device='cuda')
+    int8_mem = torch.cuda.memory_allocated() - base - fold_mem
+    qmodel = live.model
+    share = prepare.param_bytes(qmodel) / prepare.param_bytes(live_fold.model)
+    log(f'int8: encoder + decoder bytes int8 {prepare.param_bytes(qmodel)} against the fold: '
+        f'{prepare.param_bytes(live_fold.model)} ({share:.4f}); torch.cuda.memory_allocated '
+        f'after loading the fold +{fold_mem} bytes, the int8 twin +{int8_mem} bytes (each with '
+        f'its quantizer)')
+    check(share < INT8_BYTES_SHARE, f'int8 weights take {share:.4f} of the bytes of the fold')
+    deq = LiveCodec(prepare.dequantize_weights(qmodel), device='cuda')
+    raw = LiveCodec(model, device='cuda')
+
+    # the codec: 10 s at 6 and 24 kbps, B 1 and 16, against the f32 path on
+    # the dequantized weights (the same codes and bits expected)
+    launches = dict.fromkeys(names, 0)
+    for bw in (6., 24.):
+        for batch in (1, 16):
+            x = make_clip(seed + 400 + batch, batch=batch)
+            with counting(names, launches):
+                codes = live.encode(x, bandwidth=bw)[0]              # [B, K, T']
+                dec = live.decode((codes,), bandwidth=bw)
+            codes_d = deq.encode(x, bandwidth=bw)[0]
+            codes_r = raw.encode(x, bandwidth=bw)[0]
+            dec_d = deq.decode((codes,), bandwidth=bw)
+            dec_r = raw.decode((codes_r,), bandwidth=bw)
+            same = bool(torch.equal(codes, codes_d)) and bool(torch.equal(dec, dec_d))
+            share_r = float((codes == codes_r).float().mean())
+            rms = float(torch.sqrt(torch.mean((dec - dec_r) ** 2))
+                        / torch.sqrt(torch.mean(dec_r ** 2)))
+            log(f'int8 LiveCodec {SECONDS} s at {bw:g} kbps, B {batch}: codes {tuple(codes.shape)} '
+                f'and decode equal to the f32 path on the dequantized weights: {same}; against '
+                f'the raw f32 model (information): codes equal {share_r:.6f}, decode relative '
+                f'RMS {rms:.4f}')
+            check(same and bool(torch.isfinite(dec).all()),
+                  f'the int8 codec differs from the f32 path on its dequantized weights '
+                  f'({bw} kbps, B {batch})')
+
+    # kernels at the main path's shapes (not counted)
+    k2 = k2_int8_check(torch, gen)
+    k3 = k3_int8_check(torch, seed, qmodel)
+
+    # the servers on the int8 twin
+    hop = qmodel.encoder.hop_length
+    clips = make_clip(seed + 500, batch=STREAMS, seconds=STREAM_HOPS * hop / SR)
+    qmodel.set_target_bandwidth(6.)
+    x = torch.from_numpy(clips).cuda()
+    offline_codes = qmodel.encode(x)[0][0]
+    outputs, lat, wall, stats, stream_launches, mux_counts = serve_streams(torch, qmodel, clips,
+                                                                           names)
+    same = float(np.mean([np.mean(o[1] == offline_codes[i].cpu().numpy())
+                          for i, o in enumerate(outputs)]))
+    worst, ok = 0.0, True
+    for i, (audio, codes) in enumerate(outputs):
+        ref = qmodel.decode([(torch.from_numpy(codes).cuda().reshape(1, *codes.shape[-2:]),
+                              None)]).cpu().numpy()[0]
+        worst = max(worst, float(np.abs(audio - ref).max()))
+        ok &= bool(np.allclose(audio, ref, atol=STREAM_ATOL, rtol=STREAM_RTOL))
+    audio_s = STREAMS * clips.shape[-1] / SR
+    log(f'int8 StreamingServer {STREAMS} slots x {CHUNK_HOPS} hops: {audio_s:.2f} audio s in '
+        f'{wall:.3f} s = {audio_s / wall:.2f} audio s/s; tick ms p50 {stats["tick_ms_p50"]:.3f} '
+        f'p99 {stats["tick_ms_p99"]:.3f}; codes equal to the offline int8 encode {same:.6f}; '
+        f'audio against the offline int8 decode of its own codes: max |d| {worst:.3e} '
+        f'(atol {STREAM_ATOL}, rtol {STREAM_RTOL}: {ok}); launches {stream_launches}, inside '
+        f'the batched step {mux_counts}')
+    check(ok and same >= K1_TOL_SHARE, 'the int8 stream disagrees with the offline int8 model')
+    lengths = [24000, 31000, 12000, 47000]
+    reqs = [make_clip(seed + 600 + i, batch=1, seconds=n / SR)[0] for i, n in enumerate(lengths)]
+    direct = [live.roundtrip(r[None])[0].cpu().numpy() for r in reqs]
+    reset_counts()
+    results = [None] * len(reqs)
+    with CodecServer(live, max_batch=4, max_wait_ms=20.0) as cs:
+        def call(i):
+            results[i] = cs.roundtrip(reqs[i], timeout=120)
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        cstats = cs.stats()
+    server_launches = read_counts(names)
+    check(all(r is not None and r.shape == d.shape for r, d in zip(results, direct)),
+          'an int8 CodecServer request did not finish')
+    snr = min(snr_db(d, r) for d, r in zip(direct, results))
+    log(f'int8 CodecServer {len(reqs)} concurrent round trips: {cstats["batches"]} batches, '
+        f'min SNR against direct calls {snr:.2f} dB; launches {server_launches}')
+    check(snr >= SNR_MIN_DB, 'the int8 CodecServer disagrees with direct calls')
+    for k in names:
+        launches[k] += stream_launches[k] + server_launches[k]
+    log(f'int8 serving path launches (codec, streams, CodecServer): {launches}')
+    check(all(launches[k] > 0 for k in ('rvq_encode',) + INT8_KERNELS)
+          and launches['lstm_recurrence'] == 0 and launches['resblock'] == 0
+          and all(mux_counts[k] > 0 for k in INT8_KERNELS),
+          f'the int8 path did not run on the int8 entries of K2 and K3: {launches}, mux '
+          f'{mux_counts}')
+    return k2, k3, launches
 
 
 TRAIN_SECONDS = 3
@@ -2905,9 +3229,12 @@ def run(seed: int, before_dir=None) -> int:
         k3 = k3_phase(torch, seed, Path(tmp) / CKPT, before)
         phase('serving')
         serve_launches = serving_phase(torch, seed, Path(tmp) / CKPT)
+        phase('int8 serving')
+        k2_i8, k3_i8, int8_launches = int8_phase(torch, seed, Path(tmp) / CKPT, gen)
         phase('LM codec')
         k6, lm_launches = lm_codec_phase(torch, seed, Path(tmp))
-    launches = {k: cli_launches[k] + serve_launches[k] + lm_launches[k] for k in CODEC_KERNELS}
+    launches = {k: cli_launches[k] + serve_launches[k] + lm_launches[k] + int8_launches[k]
+                for k in CODEC_KERNELS}
     phase('K4')
     k4_fwd, k4_dx = k4_phase(torch, seed, before=before)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2979,6 +3306,14 @@ def run(seed: int, before_dir=None) -> int:
         dict(name='resblock', route='cuda', source='encodec_pytorch_tpu_torch/csrc/resblock.cu',
              replaces='encodec_pytorch_tpu/ops/pallas_resblock.py:34',
              launches=launches['resblock'], **k3),
+        dict(name='lstm_recurrence_int8', route='cuda',
+             source='encodec_pytorch_tpu_torch/csrc/lstm.cu',
+             replaces='encodec_pytorch_tpu/ops/pallas_lstm.py:22',
+             launches=int8_launches['lstm_recurrence_int8'], **k2_i8),
+        dict(name='resblock_int8', route='cuda',
+             source='encodec_pytorch_tpu_torch/csrc/resblock.cu',
+             replaces='encodec_pytorch_tpu/ops/pallas_resblock.py:34',
+             launches=int8_launches['resblock_int8'], **k3_i8),
         dict(name='disc_conv_forward', route='cuda', source=k4_src, replaces=k4_tpu,
              launches=train_launches['disc_conv_forward']
              + train48_launches['disc_conv_forward'], **k4_fwd),

@@ -16,6 +16,12 @@ Mapping (JAX → torch layout):
   ``conv.norm.weight``/``bias`` (``convtr.norm.*`` for a transposed conv).
 - ``SLSTM`` ``w_ih_l{j} [in, 4H]``, ``w_hh_l{j} [H, 4H]``, ``b_l{j}`` →
   transposed weights, ``bias_ih = b`` and ``bias_hh = 0``.
+- An int8 tree (``encodec_pytorch_tpu/prepare.py`` ``quantize_weights``):
+  each ``{'q8', 'scale'}`` leaf in place of a ``kernel`` or an LSTM matrix
+  becomes the int8 twin's (``prepare.quantize_weights``) buffers,
+  ``weight_q8`` (transposed as ``weight`` is) and ``weight_scale`` (as it
+  is: the JAX layout's trailing axis is dim 0 of torch's), or
+  ``weight_{ih,hh}_l{j}_q8``/``_scale``. The twin loads it strictly.
 - The quantizer's stage-stacked ``inited``, ``cluster_size``, ``embed`` and
   ``embed_avg`` (the whole RVQ training state) → one
   ``layers.{k}._codebook.*`` set per stage.
@@ -64,6 +70,18 @@ def _f32(a) -> np.ndarray:
     return np.array(a, np.float32, copy=True, order='C')
 
 
+def _emit_weight(sd: Dict[str, np.ndarray], key: str, leaf, transpose) -> None:
+    """A weight leaf, transposed to torch's layout: f32 under ``key``, or an
+    int8 ``{'q8', 'scale'}`` leaf as ``{key}_q8`` and ``{key}_scale``."""
+    if isinstance(leaf, Mapping):
+        if set(leaf) != {'q8', 'scale'}:
+            raise ValueError(f'cannot convert leaves {sorted(leaf)} at {key}')
+        sd[f'{key}_q8'] = np.array(np.transpose(leaf['q8'], transpose), np.int8, order='C')
+        sd[f'{key}_scale'] = _f32(leaf['scale'])
+    else:
+        sd[key] = _f32(np.transpose(leaf, transpose))
+
+
 def _emit_conv(sd: Dict[str, np.ndarray], prefix: str, sub: str, tree: Mapping):
     """One weight-normed, plain or ``time_group_norm`` conv subtree under
     ``{prefix}.{sub}``; weights are transposed from the JAX ``[k, a, b]``
@@ -76,7 +94,7 @@ def _emit_conv(sd: Dict[str, np.ndarray], prefix: str, sub: str, tree: Mapping):
         sd[f'{prefix}.{sub}.weight_g'] = _f32(tree['g']).reshape(-1, 1, 1)
         sd[f'{prefix}.{sub}.weight_v'] = _f32(np.transpose(tree['v'], (2, 1, 0)))
     if 'kernel' in tree:
-        sd[f'{prefix}.{sub}.weight'] = _f32(np.transpose(tree['kernel'], (2, 1, 0)))
+        _emit_weight(sd, f'{prefix}.{sub}.weight', tree['kernel'], (2, 1, 0))
     if 'bias' in tree:
         sd[f'{prefix}.{sub}.bias'] = _f32(tree['bias'])
     if 'GroupNorm_0' in tree:
@@ -92,8 +110,8 @@ def _emit_layer(sd: Dict[str, np.ndarray], prefix: str, tree: Mapping):
         j = 0
         while f'w_ih_l{j}' in tree:
             b = _f32(tree[f'b_l{j}'])
-            sd[f'{prefix}.lstm.weight_ih_l{j}'] = _f32(np.transpose(tree[f'w_ih_l{j}']))
-            sd[f'{prefix}.lstm.weight_hh_l{j}'] = _f32(np.transpose(tree[f'w_hh_l{j}']))
+            for m in ('ih', 'hh'):
+                _emit_weight(sd, f'{prefix}.lstm.weight_{m}_l{j}', tree[f'w_{m}_l{j}'], (1, 0))
             sd[f'{prefix}.lstm.bias_ih_l{j}'] = b
             sd[f'{prefix}.lstm.bias_hh_l{j}'] = np.zeros_like(b)
             j += 1

@@ -35,36 +35,41 @@ EncodeTiled encode_tiled() {
 
 }  // namespace
 
-cudaError_t encodec_tensor_map_2d(const float* base, int rows, int cols, int box_rows,
-                                  int box_cols, bool swizzle128, CUtensorMap* out) {
+cudaError_t encodec_tensor_map_2d_bytes(const void* base, int elem_bytes, int rows, int cols,
+                                        int box_rows, int box_cols, bool swizzle128,
+                                        CUtensorMap* out) {
     struct Entry {
-        const float* base;
-        int rows, cols, box_rows, box_cols;
+        const void* base;
+        int elem_bytes, rows, cols, box_rows, box_cols;
         bool swizzle128;
         CUtensorMap map;
     };
-    constexpr int SLOTS = 64;   // the 24 kHz model's 8 resblocks x 3 maps, and K1's
+    // the 24 kHz model's 8 resblocks x 3 maps, f32 and int8 twins, and K1's
+    constexpr int SLOTS = 96;
     static Entry cache[SLOTS];
     static int used = 0, next = 0;
     static std::mutex lock;
     std::lock_guard<std::mutex> guard(lock);
     for (int i = 0; i < used; ++i) {
         const Entry& e = cache[i];
-        if (e.base == base && e.rows == rows && e.cols == cols && e.box_rows == box_rows
-            && e.box_cols == box_cols && e.swizzle128 == swizzle128) {
+        if (e.base == base && e.elem_bytes == elem_bytes && e.rows == rows && e.cols == cols
+            && e.box_rows == box_rows && e.box_cols == box_cols && e.swizzle128 == swizzle128) {
             *out = e.map;
             return cudaSuccess;
         }
     }
+    if (elem_bytes != 4 && elem_bytes != 1) return cudaErrorInvalidValue;
     const EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
-    Entry e{base, rows, cols, box_rows, box_cols, swizzle128, {}};
+    Entry e{base, elem_bytes, rows, cols, box_rows, box_cols, swizzle128, {}};
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
     const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
     const cuuint32_t steps[2] = {1, 1};
-    if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
-               strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+    if (encode(&e.map,
+               elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+               2, const_cast<void*>(base), dims, strides, box, steps,
+               CU_TENSOR_MAP_INTERLEAVE_NONE,
                swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
         != CUDA_SUCCESS)

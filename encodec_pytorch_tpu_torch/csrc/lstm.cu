@@ -56,6 +56,15 @@
 //   recurrence at 1e-4 after hundreds of steps.
 // - Forward only: training's backward recomputes the recurrence with the
 //   plain PyTorch loop (ops/lstm.py `_Recurrence`), as the JAX package does.
+// - int8 weights (encodec_lstm_recurrence_i8w, the int8 twin of prepare.py):
+//   W_hh arrives as int8 [4H, H] with an f32 scale a gate row. The kernel is
+//   the same template with the weight type int8: each lane loads its int8
+//   K-slice once a launch and forms __fmul_rn((float)q, scale[row]), the
+//   product torch's and the JAX package's dequantization compute, into the
+//   registers the f32 entry fills, so everything after the load, and the
+//   bits, are the f32 kernel's on the dequantized matrix. A launch reads 1 MB
+//   of W_hh instead of 4 at H = 512: the carried serving call (T 4, B 16)
+//   reloads it every tick.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -142,10 +151,19 @@ __device__ __forceinline__ float gate_dot(const float4 (&w)[2][KMAX], int KI, co
 template <int KMAX>
 constexpr int max_threads() { return KMAX > 4 ? 512 : 256; }
 
-// KMAX bounds the float4s of a thread's K-slice: H <= 128 * KMAX.
-template <int KMAX>
+// W_hh element k of a row, in f32: the element itself, or an int8 one times
+// the row's scale (the dequantization, one rounding)
+__device__ __forceinline__ float weight_at(const float* row, int k, float) { return row[k]; }
+__device__ __forceinline__ float weight_at(const int8_t* row, int k, float scale) {
+    return __fmul_rn(static_cast<float>(row[k]), scale);
+}
+
+// KMAX bounds the float4s of a thread's K-slice: H <= 128 * KMAX. W is the
+// type W_hh arrives in: float, or int8_t with `scale` (a gate row each).
+template <int KMAX, typename W>
 __global__ void __launch_bounds__(max_threads<KMAX>())
-lstm_recurrence_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
+lstm_recurrence_kernel(const float* __restrict__ xp, const W* __restrict__ whh,
+                       const float* __restrict__ scale,
                        const float* __restrict__ h0, const float* __restrict__ c0,
                        float* out, float* c_out, int T, int B, int H, int U, int b0, int nb,
                        unsigned long long* prof) {
@@ -175,14 +193,16 @@ lstm_recurrence_kernel(const float* __restrict__ xp, const float* __restrict__ w
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int q = (row0 + r) / U, u = (row0 + r) % U;
-        const float* wr = whh + ((size_t)q * H + u0 + u) * H;
+        const size_t grow = (size_t)q * H + u0 + u;   // the gate row of W_hh
+        const W* wr = whh + grow * H;
+        const float ws = (scale != nullptr && u < nu) ? scale[grow] : 0.f;
 #pragma unroll
         for (int i = 0; i < KMAX; ++i) {
             float v[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int k = 4 * SLICES * i + 4 * lane + e;
-                v[e] = (u < nu && k < H) ? wr[k] : 0.f;
+                v[e] = (u < nu && k < H) ? weight_at(wr, k, ws) : 0.f;
             }
             w[r][i] = make_float4(v[0], v[1], v[2], v[3]);
         }
@@ -341,7 +361,7 @@ cudaError_t device_info(int device, DeviceInfo* out) {
 // Raises the instantiation's shared-memory attribute to the opt-in limit
 // once per device, then answers how many blocks of `threads` threads and
 // `smem` bytes an SM holds, each answer cached per device.
-template <int KMAX>
+template <int KMAX, typename W>
 cudaError_t blocks_per_sm(int device, const DeviceInfo& d, int threads, size_t smem,
                           int* per_sm) {
     static std::mutex mutex;
@@ -350,7 +370,7 @@ cudaError_t blocks_per_sm(int device, const DeviceInfo& d, int threads, size_t s
     std::lock_guard<std::mutex> lock(mutex);
     if (!configured[device]) {
         const cudaError_t err = cudaFuncSetAttribute(
-            lstm_recurrence_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            lstm_recurrence_kernel<KMAX, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             d.max_smem);
         if (err != cudaSuccess) return err;
         configured[device] = true;
@@ -360,7 +380,7 @@ cudaError_t blocks_per_sm(int device, const DeviceInfo& d, int threads, size_t s
     if (it == cache[device].end()) {
         int n = 0;
         const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, lstm_recurrence_kernel<KMAX>, threads, smem);
+            &n, lstm_recurrence_kernel<KMAX, W>, threads, smem);
         if (err != cudaSuccess) return err;
         it = cache[device].emplace(key, n).first;
     }
@@ -368,9 +388,9 @@ cudaError_t blocks_per_sm(int device, const DeviceInfo& d, int threads, size_t s
     return cudaSuccess;
 }
 
-template <int KMAX>
-cudaError_t launch(const float* xp, const float* whh, const float* h0, const float* c0,
-                   float* out, float* c_out, int T, int B, int H, int device,
+template <int KMAX, typename W>
+cudaError_t launch(const float* xp, const W* whh, const float* scale, const float* h0,
+                   const float* c0, float* out, float* c_out, int T, int B, int H, int device,
                    const DeviceInfo& d, cudaStream_t stream, unsigned long long* prof) {
     const int U = (H + d.sms - 1) / d.sms;
     const int blocks = (H + U - 1) / U;
@@ -387,17 +407,43 @@ cudaError_t launch(const float* xp, const float* whh, const float* h0, const flo
         int nb = B - b0 < nb_max ? B - b0 : nb_max;
         const size_t smem = nb * per_row + (size_t)((nb + BG - 1) / BG * BG - nb) * h_row;
         int per_sm = 0;
-        cudaError_t err = blocks_per_sm<KMAX>(device, d, threads, smem, &per_sm);
+        cudaError_t err = blocks_per_sm<KMAX, W>(device, d, threads, smem, &per_sm);
         if (err != cudaSuccess) return err;
         if (per_sm * d.sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
         int T_ = T, B_ = B, H_ = H, U_ = U, b0_ = b0, nb_ = nb;
-        void* args[] = {(void*)&xp, (void*)&whh, (void*)&h0, (void*)&c0, (void*)&out,
-                        (void*)&c_out, &T_, &B_, &H_, &U_, &b0_, &nb_, (void*)&prof};
-        err = cudaLaunchCooperativeKernel((void*)lstm_recurrence_kernel<KMAX>, dim3(blocks),
+        void* args[] = {(void*)&xp, (void*)&whh, (void*)&scale, (void*)&h0, (void*)&c0,
+                        (void*)&out, (void*)&c_out, &T_, &B_, &H_, &U_, &b0_, &nb_,
+                        (void*)&prof};
+        err = cudaLaunchCooperativeKernel((void*)lstm_recurrence_kernel<KMAX, W>, dim3(blocks),
                                           dim3(threads), args, smem, stream);
         if (err != cudaSuccess) return err;
     }
     return cudaGetLastError();
+}
+
+template <typename W>
+cudaError_t recurrence(const float* xp, const W* whh, const float* scale, const float* h0,
+                       const float* c0, float* out, float* c_out, int T, int B, int H,
+                       int device, void* stream, unsigned long long* prof) {
+    if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (T <= 0 || B <= 0) return cudaSuccess;   // the wrapper handles T = 0
+    if (H <= 0 || H > 1024) return cudaErrorInvalidValue;
+    DeviceInfo d;
+    if ((err = device_info(device, &d))) return err;
+    if (!d.coop) return cudaErrorNotSupported;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const int ki = (H + 4 * SLICES - 1) / (4 * SLICES);
+#define LSTM_LAUNCH(KMAX) \
+    return launch<KMAX, W>(xp, whh, scale, h0, c0, out, c_out, T, B, H, device, d, s, prof)
+    if (ki <= 1) LSTM_LAUNCH(1);
+    if (ki <= 2) LSTM_LAUNCH(2);
+    if (ki <= 4) LSTM_LAUNCH(4);
+    LSTM_LAUNCH(8);
+#undef LSTM_LAUNCH
 }
 
 }  // namespace
@@ -413,20 +459,17 @@ extern "C" int encodec_lstm_recurrence_f32(const float* xp, const float* whh, co
                                            const float* c0, float* out, float* c_out,
                                            int T, int B, int H, int device, void* stream,
                                            unsigned long long* prof) {
-    if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    if (T <= 0 || B <= 0) return cudaSuccess;   // the wrapper handles T = 0
-    if (H <= 0 || H > 1024) return cudaErrorInvalidValue;
-    DeviceInfo d;
-    if ((err = device_info(device, &d))) return err;
-    if (!d.coop) return cudaErrorNotSupported;
-    const auto s = static_cast<cudaStream_t>(stream);
-    const int ki = (H + 4 * SLICES - 1) / (4 * SLICES);
-    if (ki <= 1) return launch<1>(xp, whh, h0, c0, out, c_out, T, B, H, device, d, s, prof);
-    if (ki <= 2) return launch<2>(xp, whh, h0, c0, out, c_out, T, B, H, device, d, s, prof);
-    if (ki <= 4) return launch<4>(xp, whh, h0, c0, out, c_out, T, B, H, device, d, s, prof);
-    return launch<8>(xp, whh, h0, c0, out, c_out, T, B, H, device, d, s, prof);
+    return recurrence<float>(xp, whh, nullptr, h0, c0, out, c_out, T, B, H, device, stream,
+                             prof);
+}
+
+// The same with W_hh int8 [4H, H] and its f32 scale a gate row [4H] (the
+// int8 twin's weights): the f32 kernel's output on q * scale, bit for bit.
+extern "C" int encodec_lstm_recurrence_i8w(const float* xp, const int8_t* whh,
+                                           const float* scale, const float* h0,
+                                           const float* c0, float* out, float* c_out,
+                                           int T, int B, int H, int device, void* stream,
+                                           unsigned long long* prof) {
+    return recurrence<int8_t>(xp, whh, scale, h0, c0, out, c_out, T, B, H, device, stream,
+                              prof);
 }

@@ -60,12 +60,27 @@
 //   that does not depend on the tile or the cluster rank: the bits equal the
 //   one-block-per-tile kernel this replaces, and a streamed chunk gives the
 //   same bits as the offline call.
+// - int8 weights (encodec_resblock_i8w, the int8 twin of prepare.py): k1, k2
+//   and ks arrive as int8 in the same layouts with an f32 scale a row. The
+//   chunks stream as bytes: 8-bit TMA tensor copies where every row of the
+//   three matrices is a multiple of 16 bytes (C and H multiples of 16: rows
+//   of 3C, H and C bytes; the boxes' 192 / 96 / 48 columns are too), plain
+//   loads of the int8 bytes otherwise. A chunk being 4x smaller, the ring
+//   has 4 stages (3 chunks in flight) in the shared memory the f32 ring's 2
+//   take. When a chunk has landed, the CTA dequantizes it once into one f32
+//   buffer, __fmul_rn((float)q, scale[row]) an element (the product torch's
+//   and the JAX package's dequantization compute), and the products read
+//   that buffer exactly as the f32 kernel reads its chunk: the scale is not
+//   factored out of the sums, so the bits are the f32 kernel's on the
+//   dequantized weights.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+#include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 #include "tma.cuh"
 
@@ -74,7 +89,23 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int STAGES = 2;    // weight chunks in shared memory: one in use, the next in flight
+
+// Weight chunks in shared memory: f32, one in use and the next in flight;
+// int8 (a quarter of the bytes), one in use and three in flight, in the room
+// of the f32 ring with the chunk's dequantized f32 copy beside them.
+template <typename W>
+__host__ __device__ constexpr int stages() { return sizeof(W) == 1 ? 4 : 2; }
+
+template <typename W>
+__host__ __device__ constexpr bool is_int8() { return std::is_same<W, int8_t>::value; }
+
+// Elements of a ring buffer of W: the larger chunk, rounded to 128 bytes (a
+// TMA destination's alignment)
+template <typename W>
+__host__ __device__ constexpr int wbuf(int a, int b) {
+    constexpr int unit = 128 / sizeof(W);
+    return ((a > b ? a : b) + unit - 1) / unit * unit;
+}
 
 __device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
 
@@ -107,18 +138,23 @@ __device__ __forceinline__ float lane_of(const float4& v, int u) {
 // A tile of N columns; a thread owns RT columns (RT * 32 <= N) and RH1 rows
 // of y1, RH2 rows of the output; CL CTAs a cluster; weight chunks of KC1
 // columns of k1 (a multiple of 12: 4 channels x 3 taps) and KC2 of k2 and ks
-// (a multiple of 4).
-template <int N, int RT, int CL, int RH1, int RH2, int KC1, int KC2>
+// (a multiple of 4). W is the weights' type: float, or int8_t with the row
+// scales s1 [H], s2 [C], ss [C].
+template <typename W, int N, int RT, int CL, int RH1, int RH2, int KC1, int KC2>
 __global__ void __launch_bounds__(THREADS, 2)   // two CTAs an SM: registers <= 128
 resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__ CUtensorMap map2,
                 const __grid_constant__ CUtensorMap map3, const float* __restrict__ x,
                 const float* __restrict__ left,
-                const float* __restrict__ k1, const float* __restrict__ b1,
-                const float* __restrict__ k2, const float* __restrict__ b2,
-                const float* __restrict__ ks, const float* __restrict__ bs,
+                const W* __restrict__ k1, const float* __restrict__ s1,
+                const float* __restrict__ b1,
+                const W* __restrict__ k2, const float* __restrict__ s2,
+                const float* __restrict__ b2,
+                const W* __restrict__ ks, const float* __restrict__ ss,
+                const float* __restrict__ bs,
                 float* __restrict__ out, float* __restrict__ carry_out,
                 int C, int H, int T, int d, int causal, int reflect, int vec, int units,
                 int tiles) {
+    constexpr int STAGES = stages<W>();
     constexpr int CGN = N / RT;            // column groups (>= 32: a warp shares its rows)
     constexpr int RGN = THREADS / CGN;     // row groups
     constexpr int P1 = RGN * RH1, P2 = RGN * RH2;   // weight rows held, zeros past H or C
@@ -132,7 +168,7 @@ resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant_
     // a row of `as`: left halo, the tile from a 16-byte boundary, right halo
     const int OFF = (padL + 3) & ~3, LDX = OFF + N + ((padR + 3) & ~3);
     const int C4 = (C + 3) & ~3, H4 = (H + 3) & ~3;   // rows past C and H are zeros
-    constexpr int WBUF = ((P1 * KC1 > P2 * KC2 ? P1 * KC1 : P2 * KC2) + 31) / 32 * 32;
+    constexpr int WBUF = wbuf<W>(P1 * KC1, P2 * KC2);
     const int HS = (H + CL - 1) / CL, CS = (C + CL - 1) / CL;   // rows a CTA
     const int h0 = rank * HS, c0 = rank * CS;
     const int hv = max(0, min(HS, H - h0)), cv = max(0, min(CS, C - c0));
@@ -144,9 +180,11 @@ resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant_
     extern __shared__ float4 smem4[];
     unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem4);   // [STAGES]
     // the chunks: 128-byte aligned for TMA (the launch adds the slack)
-    float* ws = reinterpret_cast<float*>(smem4) + STAGES * 2;
-    ws += ((128 - (smem_u32(ws) & 127)) & 127) / 4;    // [STAGES][WBUF]
-    float* yf = ws + STAGES * WBUF;                    // [H4][N] y1, every CTA's rows
+    char* wbase = reinterpret_cast<char*>(bars + STAGES);
+    wbase += (128 - (smem_u32(wbase) & 127)) & 127;
+    W* ws = reinterpret_cast<W*>(wbase);               // [STAGES][WBUF] as they arrive
+    float* wf = reinterpret_cast<float*>(ws + STAGES * WBUF);   // int8: [WBUF] dequantized
+    float* yf = wf + (is_int8<W>() ? WBUF : 0);        // [H4][N] y1, every CTA's rows
     float* xr = yf + (size_t)H4 * N;                   // [C4][N] the tile's raw input
     float* as = xr + (size_t)C4 * N;                   // [C4][LDX] activated, with halo
 
@@ -158,7 +196,7 @@ resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant_
     auto issue = [&](int g) {
         const int q = g % per_unit, buf = g % STAGES;
         const CUtensorMap* map;
-        const float* src;
+        const W* src;
         int R, KC, Ktot, k0, row0, valid;
         if (q < n1) {
             map = &map1; src = k1; R = P1; KC = KC1; Ktot = 3 * C; k0 = q * KC1; row0 = h0;
@@ -170,25 +208,50 @@ resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant_
             map = &map3; src = ks; R = P2; KC = KC2; Ktot = C; k0 = (q - n1 - n2) * KC2;
             row0 = c0; valid = cv;
         }
-        float* dst = ws + buf * WBUF;
+        W* dst = ws + buf * WBUF;
         if (vec) {
             if (tid == 0) {
-                mbar_expect(&bars[buf], (unsigned)(R * KC * 4));
+                mbar_expect(&bars[buf], (unsigned)(R * KC * sizeof(W)));
                 tensor_copy(dst, map, k0, row0, &bars[buf]);
             }
         } else {
             for (int i = tid; i < R * KC; i += THREADS) {
                 const int r = i / KC, k = k0 + i - r * KC;
-                dst[i] = (r < valid && k < Ktot) ? src[(size_t)(row0 + r) * Ktot + k] : 0.f;
+                dst[i] = (r < valid && k < Ktot) ? src[(size_t)(row0 + r) * Ktot + k] : W(0);
             }
         }
     };
+    // int8: chunk g, landed, into wf as f32, an element q * scale[row] (rows
+    // past the matrix are zeros, as in the f32 ring)
+    auto dequantize = [&](int g) {
+        const int q = g % per_unit;
+        const float* scale = q < n1 ? s1 : (q < n1 + n2 ? s2 : ss);
+        const int R = q < n1 ? P1 : P2, KC = q < n1 ? KC1 : KC2;
+        const int row0 = q < n1 ? h0 : c0, rows = q < n1 ? H : C;
+        const W* src = ws + (g % STAGES) * WBUF;
+        for (int i = 4 * tid; i < R * KC; i += 4 * THREADS) {   // KC % 4 == 0: one row
+            const int row = row0 + i / KC;
+            const float sc = row < rows ? scale[row] : 0.f;
+            const char4 v = *reinterpret_cast<const char4*>(src + i);
+            *reinterpret_cast<float4*>(wf + i) =
+                make_float4(__fmul_rn((float)v.x, sc), __fmul_rn((float)v.y, sc),
+                            __fmul_rn((float)v.z, sc), __fmul_rn((float)v.w, sc));
+        }
+    };
     // before chunk g is used: the chunk STAGES - 1 ahead starts loading into
-    // the buffer the last chunk freed, and chunk g must have landed
-    auto begin_chunk = [&](int g) {
+    // the buffer the last chunk freed, and chunk g must have landed (int8:
+    // and been dequantized); returns chunk g as the products read it
+    auto begin_chunk = [&](int g) -> const float* {
         if (g + STAGES - 1 < total) issue(g + STAGES - 1);
         if (vec) mbar_wait(&bars[g % STAGES], (g / STAGES) & 1);
-        __syncthreads();
+        if constexpr (is_int8<W>()) {
+            dequantize(g);
+            __syncthreads();
+            return wf;
+        } else {
+            __syncthreads();
+            return ws + (g % STAGES) * WBUF;
+        }
     };
 
     if (vec && tid == 0) {
@@ -271,8 +334,7 @@ resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant_
                 for (int n = 0; n < RT; ++n) acc[r][n] = 0.f;
             const float* abase = as + OFF - padL + cg_;
             for (int q = 0; q < n1; ++q, ++g) {
-                begin_chunk(g);
-                const float* wr = ws + (g % STAGES) * WBUF + rg * RH1 * KC1;
+                const float* wr = begin_chunk(g) + rg * RH1 * KC1;
                 const int kb = q * KC1;
                 const int kc = min(KC1, (3 * C - kb + 11) / 12 * 12);   // past 3C the weights are 0
                 for (int kk = 0; kk < kc; kk += 12) {
@@ -325,8 +387,7 @@ resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant_
 #pragma unroll
                 for (int n = 0; n < RT; ++n) acc[r][n] = sc[r][n] = 0.f;
             for (int q = 0; q < n2; ++q, ++g) {
-                begin_chunk(g);
-                const float* wr = ws + (g % STAGES) * WBUF + rg * RH2 * KC2;
+                const float* wr = begin_chunk(g) + rg * RH2 * KC2;
                 const int kb = q * KC2, kc = min(KC2, (H - kb + 3) & ~3);
                 for (int kk = 0; kk < kc; kk += 4) {
                     float4 wv[RH2];
@@ -351,8 +412,7 @@ resblock_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant_
                 __syncthreads();
             }
             for (int q = 0; q < n3; ++q, ++g) {
-                begin_chunk(g);
-                const float* wr = ws + (g % STAGES) * WBUF + rg * RH2 * KC2;
+                const float* wr = begin_chunk(g) + rg * RH2 * KC2;
                 const int kb = q * KC2, kc = min(KC2, (C - kb + 3) & ~3);
                 for (int kk = 0; kk < kc; kk += 4) {
                     float4 wv[RH2];
@@ -407,21 +467,24 @@ int max_smem_optin(int device) {
     return v;
 }
 
-template <int N, int RT, int CL, int RH1, int RH2, int KC1, int KC2>
-cudaError_t launch(const float* x, const float* left, const float* k1, const float* b1,
-                   const float* k2, const float* b2, const float* ks, const float* bs,
-                   float* out, float* carry_out, int B, int C, int H, int T, int d, int causal,
-                   int reflect, int device, cudaStream_t stream) {
+template <typename W, int N, int RT, int CL, int RH1, int RH2, int KC1, int KC2>
+cudaError_t launch(const float* x, const float* left, const W* k1, const float* s1,
+                   const float* b1, const W* k2, const float* s2, const float* b2, const W* ks,
+                   const float* ss, const float* bs, float* out, float* carry_out, int B, int C,
+                   int H, int T, int d, int causal, int reflect, int device,
+                   cudaStream_t stream) {
+    constexpr int STAGES = stages<W>();
     constexpr int RGN = THREADS / (N / RT);
     constexpr int P1 = RGN * RH1, P2 = RGN * RH2;
-    auto kernel = resblock_kernel<N, RT, CL, RH1, RH2, KC1, KC2>;
+    auto kernel = resblock_kernel<W, N, RT, CL, RH1, RH2, KC1, KC2>;
     if ((H + CL - 1) / CL > P1 || (C + CL - 1) / CL > P2) return cudaErrorInvalidValue;
     const int padL = causal ? 2 * d : d, padR = causal ? 0 : d;
     const int LDX = ((padL + 3) & ~3) + N + ((padR + 3) & ~3);
-    constexpr int WBUF = ((P1 * KC1 > P2 * KC2 ? P1 * KC1 : P2 * KC2) + 31) / 32 * 32;
+    constexpr int WBUF = wbuf<W>(P1 * KC1, P2 * KC2);
     const size_t C4 = (C + 3) & ~3, H4 = (H + 3) & ~3;
     const size_t smem = 8 * STAGES + 128   // the barriers, the chunks' alignment
-                        + sizeof(float) * ((size_t)STAGES * WBUF + H4 * N + C4 * N + C4 * LDX);
+                        + sizeof(W) * (size_t)STAGES * WBUF
+                        + sizeof(float) * ((is_int8<W>() ? WBUF : 0) + H4 * N + C4 * N + C4 * LDX);
     const int max_smem = max_smem_optin(device);
     if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
     static std::atomic<bool> configured[MAX_DEVICES];
@@ -431,8 +494,11 @@ cudaError_t launch(const float* x, const float* left, const float* k1, const flo
         if (err != cudaSuccess) return err;
         configured[device].store(true, std::memory_order_relaxed);
     }
-    const auto aligned = [](const float* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
-    const int vec = (C % 4 == 0 && H % 4 == 0 && aligned(k1) && aligned(k2) && aligned(ks)) ? 1 : 0;
+    const auto aligned = [](const W* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+    // TMA: every global row a multiple of 16 bytes (3C, H and C elements)
+    constexpr int ALIGN = 16 / sizeof(W);
+    const int vec = (C % ALIGN == 0 && H % ALIGN == 0 && aligned(k1) && aligned(k2)
+                     && aligned(ks)) ? 1 : 0;
     const long long tiles = (T + N - 1) / N, units = tiles * B;
     if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
     // the weights in boxes of a chunk's columns x the rows a CTA holds
@@ -475,9 +541,10 @@ cudaError_t launch(const float* x, const float* left, const float* k1, const flo
     if (clusters <= 0) return cudaErrorInvalidConfiguration;
     if ((long long)clusters > units) clusters = static_cast<int>(units);
     cfg.gridDim = dim3(static_cast<unsigned>(clusters * CL), 1, 1);
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map1, map2, map3, x, left, k1, b1, k2,
-                                               b2, ks, bs, out, carry_out, C, H, T, d, causal,
-                                               reflect, vec, static_cast<int>(units),
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map1, map2, map3, x, left, k1, s1,
+                                               b1, k2, s2, b2, ks, ss, bs, out, carry_out, C, H,
+                                               T, d, causal, reflect, vec,
+                                               static_cast<int>(units),
                                                static_cast<int>(tiles));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
@@ -506,15 +573,13 @@ extern "C" void encodec_resblock_config(int C, int H, int* cluster, int* tile) {
     }
 }
 
-// x [B, C, T], k1 [H, C, 3], b1 [H], k2 [C, H], b2 [C], ks [C, C], bs [C] (f32,
-// contiguous, on `device`; C and 2H at most 512); left and carry_out
-// [B, C, 2d] or null (left only when causal). Writes out [B, C, T]. Launches
-// on `stream`; returns a cudaError_t (a refused cluster launch included).
-extern "C" int encodec_resblock_f32(const float* x, const float* left, const float* k1,
-                                    const float* b1, const float* k2, const float* b2,
-                                    const float* ks, const float* bs, float* out,
-                                    float* carry_out, int B, int C, int H, int T, int d,
-                                    int causal, int reflect, int device, void* stream) {
+namespace {
+
+template <typename W>
+cudaError_t block(const float* x, const float* left, const W* k1, const float* s1,
+                  const float* b1, const W* k2, const float* s2, const float* b2, const W* ks,
+                  const float* ss, const float* bs, float* out, float* carry_out, int B, int C,
+                  int H, int T, int d, int causal, int reflect, int device, void* stream) {
     if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
     int current = -1;
     cudaError_t err = cudaGetDevice(&current);
@@ -523,9 +588,9 @@ extern "C" int encodec_resblock_f32(const float* x, const float* left, const flo
     if (B <= 0 || T <= 0) return cudaSuccess;
     if (C <= 0 || H <= 0 || d <= 0 || (left != nullptr && !causal)) return cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RESBLOCK_LAUNCH(...)                                                               \
-    return launch<__VA_ARGS__>(x, left, k1, b1, k2, b2, ks, bs, out, carry_out, B, C, H, T, d, \
-                               causal, reflect, device, s)
+#define RESBLOCK_LAUNCH(...)                                                              \
+    return launch<W, __VA_ARGS__>(x, left, k1, s1, b1, k2, s2, b2, ks, ss, bs, out, carry_out, \
+                                  B, C, H, T, d, causal, reflect, device, s)
     // <N, RT, CL, RH1, RH2, KC1, KC2>: N / RT column groups, 256 / (N / RT) row
     // groups; at C 512 half-width chunks keep the shared memory under 227 KB
     switch (width_class(C, H)) {
@@ -537,4 +602,32 @@ extern "C" int encodec_resblock_f32(const float* x, const float* left, const flo
         default: return cudaErrorInvalidValue;
     }
 #undef RESBLOCK_LAUNCH
+}
+
+}  // namespace
+
+// x [B, C, T], k1 [H, C, 3], b1 [H], k2 [C, H], b2 [C], ks [C, C], bs [C] (f32,
+// contiguous, on `device`; C and 2H at most 512); left and carry_out
+// [B, C, 2d] or null (left only when causal). Writes out [B, C, T]. Launches
+// on `stream`; returns a cudaError_t (a refused cluster launch included).
+extern "C" int encodec_resblock_f32(const float* x, const float* left, const float* k1,
+                                    const float* b1, const float* k2, const float* b2,
+                                    const float* ks, const float* bs, float* out,
+                                    float* carry_out, int B, int C, int H, int T, int d,
+                                    int causal, int reflect, int device, void* stream) {
+    return block<float>(x, left, k1, nullptr, b1, k2, nullptr, b2, ks, nullptr, bs, out,
+                        carry_out, B, C, H, T, d, causal, reflect, device, stream);
+}
+
+// The same with k1, k2 and ks int8 and their f32 scales a row, s1 [H], s2 [C],
+// ss [C] (the int8 twin's weights): the f32 entry's output on q * scale, bit
+// for bit.
+extern "C" int encodec_resblock_i8w(const float* x, const float* left, const int8_t* k1,
+                                    const float* s1, const float* b1, const int8_t* k2,
+                                    const float* s2, const float* b2, const int8_t* ks,
+                                    const float* ss, const float* bs, float* out,
+                                    float* carry_out, int B, int C, int H, int T, int d,
+                                    int causal, int reflect, int device, void* stream) {
+    return block<int8_t>(x, left, k1, s1, b1, k2, s2, b2, ks, ss, bs, out, carry_out, B, C, H,
+                         T, d, causal, reflect, device, stream);
 }

@@ -5,6 +5,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -60,10 +62,25 @@ __device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, i
         : "memory");
 }
 
-// The tensor map of a row-major f32 matrix [rows][cols] (16-byte aligned,
-// cols % 4 == 0) read in boxes of box_cols x box_rows, with or without the
-// 128-byte swizzle. Maps are kept by (base, shape, box, swizzle), so a caller
-// that hands in the same cached weights call after call encodes once
+// The tensor map of a row-major matrix [rows][cols] of elem_bytes-byte
+// elements (4: f32; 1: int8, copied as its bytes) (16-byte aligned, rows of
+// a multiple of 16 bytes) read in boxes of box_cols x box_rows (box_cols x
+// elem_bytes a multiple of 16), with or without the 128-byte swizzle. Maps
+// are kept by (base, element size, shape, box, swizzle), so a caller that
+// hands in the same cached weights call after call encodes once
 // (csrc/common.cu).
-cudaError_t encodec_tensor_map_2d(const float* base, int rows, int cols, int box_rows,
-                                  int box_cols, bool swizzle128, CUtensorMap* out);
+cudaError_t encodec_tensor_map_2d_bytes(const void* base, int elem_bytes, int rows, int cols,
+                                        int box_rows, int box_cols, bool swizzle128,
+                                        CUtensorMap* out);
+
+inline cudaError_t encodec_tensor_map_2d(const float* base, int rows, int cols, int box_rows,
+                                         int box_cols, bool swizzle128, CUtensorMap* out) {
+    return encodec_tensor_map_2d_bytes(base, 4, rows, cols, box_rows, box_cols, swizzle128,
+                                       out);
+}
+
+inline cudaError_t encodec_tensor_map_2d(const int8_t* base, int rows, int cols, int box_rows,
+                                         int box_cols, bool swizzle128, CUtensorMap* out) {
+    return encodec_tensor_map_2d_bytes(base, 1, rows, cols, box_rows, box_cols, swizzle128,
+                                       out);
+}

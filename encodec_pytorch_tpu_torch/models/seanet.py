@@ -54,7 +54,14 @@ class SEANetResnetBlock(nn.Module):
     blocks, whose GroupNorms K3 cannot fuse, as the JAX package's
     ``pallas_resblock`` cannot; and bfloat16 blocks, since the TPU kernel K3
     ports is f32 only, its output and scratch f32 at ``pallas_resblock.py:109-111``)
-    it is the conv sequence. K3 raises rather than fall back."""
+    it is the conv sequence. K3 raises rather than fall back.
+
+    In the int8 twin of ``prepare.py`` (its convs' weights int8, dequantized
+    in f32) the same routing sends the block to K3's int8-weight entry
+    (:func:`..ops.resblock_kernel.resblock_int8`), which dequantizes each
+    weight before its product and so gives the f32 kernel's bits on the
+    dequantized weights. When ``prepare.quantized_call`` dequantizes in
+    another dtype, the block is its conv sequence."""
 
     def __init__(self, dim: int, norm: str, causal: bool, pad_mode: str,
                  generator: Optional[torch.Generator], dtype: torch.dtype = torch.float32):
@@ -71,30 +78,49 @@ class SEANetResnetBlock(nn.Module):
         self._convs = (self.block[1].conv.conv, self.block[3].conv.conv, self.shortcut.conv.conv)
         self._fused = None
 
+    @property
+    def int8(self) -> bool:
+        return self._convs[0].int8
+
     def fused_weights(self):
         """``(k1, b1, k2, b2, ks, bs)`` with weight norm applied, in K3's
-        layout; cached until a parameter is replaced, moved or changed in
-        place."""
-        key = tuple((p.data_ptr(), p._version) for c in self._convs
-                    for p in c._parameters.values())
+        layout; for an int8 block ``(k1_q8, s1, b1, k2_q8, s2, b2, ks_q8, ss,
+        bs)``, the int8 weights with their scales. Cached until a parameter
+        or buffer is replaced, moved or changed in place."""
+        key = tuple((t.data_ptr(), t._version) for c in self._convs
+                    for t in (*c._parameters.values(), *c._buffers.values()))
         if self._fused is None or self._fused[0] != key:
             with torch.no_grad():
                 weights = []
                 for c in self._convs:
-                    weights += [c.kernel().contiguous(), c.bias.detach()]
+                    if c.int8:
+                        weights += [c.weight_q8.contiguous(), c.weight_scale, c.bias.detach()]
+                    else:
+                        weights += [c.kernel().contiguous(), c.bias.detach()]
             self._fused = (key, tuple(weights))
         return self._fused[1]
 
+    def takes_fused(self) -> bool:
+        """Whether the block runs as one fused call (K3, or its plain version
+        on the CPU): float32 blocks of a norm that acts on the weights, and
+        int8 ones only while they dequantize in f32."""
+        return self.fusable and (not self.int8
+                                 or self._convs[0].dequant_dtype == torch.float32)
+
     def takes_kernel(self, device_type: str) -> bool:
-        """Whether a call on ``device_type`` in the current grad mode runs K3:
-        float32 blocks only, and those of a norm that acts on the weights."""
-        return self.fusable and device_type == 'cuda' and not torch.is_grad_enabled()
+        """Whether a call on ``device_type`` in the current grad mode runs K3."""
+        return self.takes_fused() and device_type == 'cuda' and not torch.is_grad_enabled()
+
+    def fused_call(self, x: torch.Tensor, **kwargs):
+        """The fused block on ``x`` (K3 on CUDA, its int8-weight entry for an
+        int8 block); ``kwargs`` go to the kernel's wrapper."""
+        fn = resblock_kernel.resblock_int8 if self.int8 else resblock_kernel.resblock
+        kw = dict(dilation=self.dilation, causal=self.causal, pad_mode=self.pad_mode)
+        return fn(x, *self.fused_weights(), **dict(kw, **kwargs))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.takes_kernel(x.device.type):
-            return resblock_kernel.resblock(x.contiguous(), *self.fused_weights(),
-                                            dilation=self.dilation, causal=self.causal,
-                                            pad_mode=self.pad_mode)
+            return self.fused_call(x.contiguous())
         return self.shortcut(x) + self.block(x)
 
 

@@ -113,6 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.encodec_rvq_config.argtypes = [i, i, p, p, p]
     lib.encodec_lstm_recurrence_f32.restype = i
     lib.encodec_lstm_recurrence_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
+    lib.encodec_lstm_recurrence_i8w.restype = i
+    lib.encodec_lstm_recurrence_i8w.argtypes = [p] * 7 + [i] * 4 + [p, p]
     lib.encodec_disc_conv_fwd_f32.restype = i
     lib.encodec_disc_conv_fwd_f32.argtypes = [p, p, p, p] + [i] * 12 + [p]
     lib.encodec_disc_conv_dx_f32.restype = i
@@ -135,6 +137,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.encodec_disc_im2col_pack_bf16.argtypes = [p, p, p]
     lib.encodec_resblock_f32.restype = i
     lib.encodec_resblock_f32.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.encodec_resblock_i8w.restype = i
+    lib.encodec_resblock_i8w.argtypes = [p] * 13 + [i] * 8 + [p]
     lib.encodec_resblock_config.restype = None
     lib.encodec_resblock_config.argtypes = [i, i, p, p]
     lib.encodec_lm_coder_f32.restype = i

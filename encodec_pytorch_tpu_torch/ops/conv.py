@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import disc_conv_kernel, disc_im2col_kernel
+from .int8 import dequantize_int8, quantize_int8
 from .pad import get_extra_padding_for_conv1d, pad1d, unpad1d
 
 CONV_NORMALIZATIONS = frozenset(['none', 'weight_norm', 'time_group_norm'])
@@ -62,6 +63,12 @@ class _ConvWeight(nn.Module):
     conv. Weight norm keeps one norm per
     index of the first axis (``weight_norm(dim=0)``). Init is torch's: uniform
     in ``±1/sqrt(fan_in)``, from ``generator``.
+
+    A plain weight has an int8 form (:meth:`quantize_int8`, for serving): the
+    buffers ``weight_q8`` (int8, ``shape``) and ``weight_scale`` (f32, one a
+    row of dim 0, the JAX layout's trailing axis), and :meth:`kernel`
+    dequantizes them in ``dequant_dtype`` (f32 unless
+    ``prepare.quantized_call`` asks for the model's compute dtype) each call.
     """
 
     def __init__(self, shape: Tuple[int, ...], fan_in: int, bias_size: int,
@@ -79,11 +86,26 @@ class _ConvWeight(nn.Module):
         else:
             self.weight = nn.Parameter(weight)
         self.bias = nn.Parameter(_uniform((bias_size,), bound, generator))
+        self.int8 = False
+        self.dequant_dtype = torch.float32
 
     def kernel(self) -> torch.Tensor:
         if self.norm == 'weight_norm':
             return self.weight_g * self.weight_v / _norm_except_dim0(self.weight_v)
+        if self.int8:
+            return dequantize_int8(self.weight_q8, self.weight_scale, self.dequant_dtype)
         return self.weight
+
+    def quantize_int8(self) -> None:
+        """Replace the plain ``weight`` by its int8 form."""
+        if self.norm != 'none' or self.int8:
+            raise ValueError(f"only a plain f32 weight quantizes, not a '{self.norm}' one "
+                             f"(int8 already: {self.int8})")
+        q8, scale = quantize_int8(self.weight)
+        del self.weight
+        self.register_buffer('weight_q8', q8)
+        self.register_buffer('weight_scale', scale)
+        self.int8 = True
 
 
 def _norm_except_dim0(v: torch.Tensor) -> torch.Tensor:

@@ -23,18 +23,27 @@ package has no LSTM backward kernel, so none is ported. A hand-written
 backward kernel is later work (``ROADMAP.md`` Queue 2).
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from . import lstm_kernel
+from .int8 import dequantize_int8, quantize_int8
 
 
 class _LSTMWeights(nn.Module):
     """``weight_ih_l{k} [4H, in]``, ``weight_hh_l{k} [4H, H]``,
     ``bias_ih_l{k}``, ``bias_hh_l{k} [4H]``; the parameters uniform in
-    ``±1/sqrt(H)`` (the JAX package's init), ``bias_hh`` a zero buffer."""
+    ``±1/sqrt(H)`` (the JAX package's init), ``bias_hh`` a zero buffer.
+
+    The int8 form (:meth:`quantize_int8`, for serving) keeps each matrix as
+    the buffers ``weight_{ih,hh}_l{k}_q8`` (int8) and ``..._scale`` (f32, one
+    a gate row): the input projection dequantizes ``w_ih`` in
+    ``dequant_dtype`` and stays ``torch.matmul``; ``W_hh`` goes to kernel K2's
+    int8 entry (:func:`..ops.lstm_kernel.lstm_recurrence_int8`) as it is, or,
+    when ``prepare.quantized_call`` dequantizes in bf16, to the f32 entry as
+    the f32 up-cast of the bf16 product (the JAX package's arithmetic)."""
 
     def __init__(self, dimension: int, num_layers: int,
                  generator: Optional[torch.Generator]):
@@ -46,15 +55,58 @@ class _LSTMWeights(nn.Module):
             return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
 
         self.num_layers = num_layers
+        self.int8 = False
+        self.dequant_dtype = torch.float32
         for k in range(num_layers):
             setattr(self, f'weight_ih_l{k}', param(4 * H, H))
             setattr(self, f'weight_hh_l{k}', param(4 * H, H))
             setattr(self, f'bias_ih_l{k}', param(4 * H))
             self.register_buffer(f'bias_hh_l{k}', torch.zeros(4 * H))
 
-    def layer(self, k: int):
-        return (getattr(self, f'weight_ih_l{k}'), getattr(self, f'weight_hh_l{k}'),
-                getattr(self, f'bias_ih_l{k}') + getattr(self, f'bias_hh_l{k}'))
+    def quantize_int8(self) -> None:
+        """Replace every weight matrix by its int8 form."""
+        if self.int8:
+            raise ValueError('the LSTM weights are int8 already')
+        for k in range(self.num_layers):
+            for name in (f'weight_ih_l{k}', f'weight_hh_l{k}'):
+                q8, scale = quantize_int8(getattr(self, name))
+                delattr(self, name)
+                self.register_buffer(f'{name}_q8', q8)
+                self.register_buffer(f'{name}_scale', scale)
+        self.int8 = True
+
+    def _weight(self, name: str) -> torch.Tensor:
+        """A weight matrix in f32 (an int8 one dequantized in ``dequant_dtype``)."""
+        if not self.int8:
+            return getattr(self, name)
+        return dequantize_int8(getattr(self, f'{name}_q8'), getattr(self, f'{name}_scale'),
+                               self.dequant_dtype).float()
+
+    def projection(self, k: int, y: torch.Tensor) -> torch.Tensor:
+        """Layer ``k``'s input projection ``y @ W_ihᵀ + (b_ih + b_hh)``,
+        ``[T, B, 4H]``, as one 2-D product over the ``T·B`` rows: the route
+        ``torch.matmul`` takes for a weight that requires a gradient, whatever
+        ``y``'s strides, so that an int8 twin's dequantized ``W_ih`` (no
+        gradient) sums as the float model's parameter does."""
+        b = getattr(self, f'bias_ih_l{k}') + getattr(self, f'bias_hh_l{k}')
+        T, B, C = y.shape
+        xp = torch.matmul(y.reshape(T * B, C), self._weight(f'weight_ih_l{k}').t())
+        return (xp.reshape(T, B, -1) + b).contiguous()
+
+    def recurrence(self, k: int, xp: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                   c0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Layer ``k``'s hidden states ``[T, B, H]`` and, from a carried
+        ``(h0, c0)``, its final cell state (None from the zero state, where a
+        gradient may flow through :func:`recurrence`)."""
+        if self.int8 and self.dequant_dtype == torch.float32:
+            name = f'weight_hh_l{k}'
+            return lstm_kernel.lstm_recurrence_int8(xp, getattr(self, f'{name}_q8'),
+                                                    getattr(self, f'{name}_scale'), h0, c0)
+        w_hh = self._weight(f'weight_hh_l{k}').contiguous()
+        if h0 is None and c0 is None:
+            return recurrence(xp, w_hh), None
+        return lstm_kernel.lstm_recurrence(xp, w_hh, h0, c0)
 
 
 class _Recurrence(torch.autograd.Function):
@@ -105,7 +157,5 @@ class SLSTM(nn.Module):
         x = x.float().permute(2, 0, 1)          # [T, B, C]
         y = x
         for k in range(self.lstm.num_layers):
-            w_ih, w_hh, b = self.lstm.layer(k)
-            xp = torch.matmul(y, w_ih.t()) + b  # [T, B, 4H]
-            y = recurrence(xp.contiguous(), w_hh.contiguous())
+            y = self.lstm.recurrence(k, self.lstm.projection(k, y))[0]
         return (y + x).permute(1, 2, 0).to(in_dtype)

@@ -17,6 +17,15 @@ the gate dot, the cell update, the grid barrier). The TPU gates
 carried over: the kernel takes any H up to 1024. Forward only: training's
 backward recomputes the recurrence with the plain version and takes its
 autograd (``ops/lstm.py`` ``_Recurrence``).
+
+:func:`lstm_recurrence_int8` takes ``W_hh`` as the int8 twin holds it
+(``prepare.py``): int8 ``[4H, H]`` and an f32 scale a gate row ``[4H]``. The
+kernel loads the int8 rows once a launch and forms ``q · scale[row]`` in f32
+into the registers the f32 entry loads, so its output is the f32 kernel's on
+the dequantized matrix, bit for bit, from a quarter of the bytes (1 MB instead
+of 4 at H 512; the carried serving call reloads it every tick). Its plain
+version :func:`lstm_recurrence_int8_reference` dequantizes, then runs
+:func:`lstm_recurrence_reference`. Forward only: int8 weights serve.
 """
 
 import ctypes
@@ -25,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .int8 import dequantize_int8
 
 
 def lstm_recurrence_reference(xp: torch.Tensor, w_hh: torch.Tensor,
@@ -49,13 +59,27 @@ def lstm_recurrence_reference(xp: torch.Tensor, w_hh: torch.Tensor,
     return torch.stack(out), c
 
 
-def _check(xp, w_hh, h0, c0):
-    tensors = [t for t in (xp, w_hh, h0, c0) if t is not None]
+def lstm_recurrence_int8_reference(xp: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor,
+                                   h0: Optional[torch.Tensor] = None,
+                                   c0: Optional[torch.Tensor] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain int8-``W_hh`` recurrence: ``W_hh`` dequantized in f32, then
+    :func:`lstm_recurrence_reference`."""
+    return lstm_recurrence_reference(xp, dequantize_int8(w_q8, scale), h0, c0)
+
+
+def _check(xp, w_hh, h0, c0, scale=None):
+    tensors = [t for t in (xp, w_hh, h0, c0, scale) if t is not None]
     if xp.device.type != 'cuda' or any(t.device != xp.device for t in tensors):
         raise ValueError(f'lstm_recurrence: tensors on {[str(t.device) for t in tensors]}; '
                          'all must be on one CUDA device (or all on the CPU)')
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f'lstm_recurrence: float32 only, got {[t.dtype for t in tensors]}')
+    wtype = torch.float32 if scale is None else torch.int8
+    if w_hh.dtype != wtype or any(t.dtype != torch.float32 for t in tensors if t is not w_hh):
+        raise TypeError(f'lstm_recurrence: w_hh {wtype} and everything else float32, got '
+                        f'{[t.dtype for t in tensors]}')
+    if scale is not None and scale.shape != w_hh.shape[:1]:
+        raise ValueError(f'lstm_recurrence: scale {tuple(scale.shape)} is not one a gate row '
+                         f'of w_hh {tuple(w_hh.shape)}')
     if xp.dim() != 3 or xp.shape[2] % 4 or w_hh.shape != (xp.shape[2], xp.shape[2] // 4):
         raise ValueError(f'lstm_recurrence: shapes xp {tuple(xp.shape)} and '
                          f'w_hh {tuple(w_hh.shape)} do not make [T, B, 4H] and [4H, H]')
@@ -68,18 +92,29 @@ def _check(xp, w_hh, h0, c0):
         raise ValueError('lstm_recurrence: inputs must be contiguous')
 
 
-def _launch(xp, w_hh, h0, c0, prof: Optional[torch.Tensor]):
+def _launch(xp, w_hh, h0, c0, prof: Optional[torch.Tensor], scale=None):
+    """K2's f32 entry, or with ``scale`` its int8-``W_hh`` entry."""
     T, B, H4 = xp.shape
     H = H4 // 4
     out = torch.empty(T, B, H, device=xp.device, dtype=torch.float32)
     c_t = torch.empty(B, H, device=xp.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
-    rc = _build.load().encodec_lstm_recurrence_f32(
-        xp.data_ptr(), w_hh.data_ptr(), None if h0 is None else h0.data_ptr(),
-        None if c0 is None else c0.data_ptr(), out.data_ptr(), c_t.data_ptr(), T, B, H,
-        xp.device.index, ctypes.c_void_p(stream), None if prof is None else prof.data_ptr())
+    lib = _build.load()
+    weights = [w_hh.data_ptr()] + ([] if scale is None else [scale.data_ptr()])
+    entry = lib.encodec_lstm_recurrence_f32 if scale is None else lib.encodec_lstm_recurrence_i8w
+    rc = entry(xp.data_ptr(), *weights, None if h0 is None else h0.data_ptr(),
+               None if c0 is None else c0.data_ptr(), out.data_ptr(), c_t.data_ptr(), T, B, H,
+               xp.device.index, ctypes.c_void_p(stream),
+               None if prof is None else prof.data_ptr())
     _build.check(rc, 'lstm_recurrence kernel')
     return out, c_t
+
+
+def _empty(xp, c0):
+    """T = 0: no launch."""
+    B, H = xp.shape[1], xp.shape[2] // 4
+    out = torch.empty(0, B, H, device=xp.device, dtype=torch.float32)
+    return out, (torch.zeros(B, H, device=xp.device) if c0 is None else c0.clone())
 
 
 def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
@@ -91,16 +126,33 @@ def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
     if all(t.device.type == 'cpu' for t in tensors):
         return lstm_recurrence_reference(xp, w_hh, h0, c0)
     _check(xp, w_hh, h0, c0)
-    T, B, H4 = xp.shape
-    if T == 0:
-        out = torch.empty(0, B, H4 // 4, device=xp.device, dtype=torch.float32)
-        return out, (torch.zeros(B, H4 // 4, device=xp.device) if c0 is None else c0.clone())
+    if xp.shape[0] == 0:
+        return _empty(xp, c0)
     out = _launch(xp, w_hh, h0, c0, None)
     lstm_recurrence.launches += 1
     return out
 
 
 lstm_recurrence.launches = 0
+
+
+def lstm_recurrence_int8(xp: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lstm_recurrence` with ``W_hh`` int8 ``[4H, H]`` and its f32 row
+    scales ``[4H]``; K2's int8-``W_hh`` entry on CUDA."""
+    tensors = [t for t in (xp, w_q8, scale, h0, c0) if t is not None]
+    if all(t.device.type == 'cpu' for t in tensors):
+        return lstm_recurrence_int8_reference(xp, w_q8, scale, h0, c0)
+    _check(xp, w_q8, h0, c0, scale)
+    if xp.shape[0] == 0:
+        return _empty(xp, c0)
+    out = _launch(xp, w_q8, h0, c0, None, scale)
+    lstm_recurrence_int8.launches += 1
+    return out
+
+
+lstm_recurrence_int8.launches = 0
 
 # the parts of a step that ``lstm_step_profile`` reports, in the kernel's order
 STEP_PARTS = ('stage', 'dot', 'update', 'barrier')

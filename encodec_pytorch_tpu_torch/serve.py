@@ -27,8 +27,13 @@ Port of ``encodec_pytorch_tpu/serve.py``:
 Everything runs on ``device``, ``cuda`` by default; without a card the servers
 refuse unless the caller passes ``device='cpu'``. ``LiveCodec(weights='fold')``
 serves a weight-norm-folded copy of the model (``prepare.py``; bit-identical
-results), and so does a ``CodecServer`` over it; a ``StreamingServer`` takes
-the folded model itself. Not ported yet: int8 weight-only serving and
+results), and ``LiveCodec(weights='int8')`` its int8 weight-only twin
+(``prepare.prepare_for_inference``): the weights stay int8 on the device and
+each call dequantizes them in f32, even on a bf16 model, whose layers then
+cast, as the JAX ``LiveCodec`` dequantizes inside its programs; on CUDA the
+blocks and the LSTM read the int8 weights in kernels K3 and K2. A
+``CodecServer`` over either serves the same; a ``StreamingServer`` takes the
+folded or int8 model itself (``prepare.quantize_weights``). Not ported yet:
 deployed artifacts (``deploy.py``); they raise ``NotImplementedError``. The
 streaming server takes causal, unnormalized, unsegmented models only
 (``streaming.py``), as the JAX package's does.
@@ -45,7 +50,7 @@ import numpy as np
 import torch
 
 from .lengthpad import exact_gate, pad_min_samples, tail_exact_gate
-from .prepare import fold_weight_norm
+from .prepare import WEIGHTS, prepare_for_inference
 from .streaming import StreamingCodec
 
 _KINDS = ('encode', 'decode', 'roundtrip')
@@ -99,20 +104,20 @@ class LiveCodec:
     """Encode, decode and roundtrip over a live model, with a concrete default
     bandwidth. Thread-safe: the bandwidth is set and used under one lock.
 
-    ``segment_major``: None picks segment-major batching for segmented models
-    (the JAX package's default); False keeps the per-segment loop."""
+    ``weights``: ``'raw'`` serves ``model`` itself; ``'fold'`` and ``'int8'``
+    its twin from ``prepare.prepare_for_inference`` (weight norm folded; then
+    int8 weight-only, dequantized in f32 each call). ``segment_major``: None
+    picks segment-major batching for segmented models (the JAX package's
+    default); False keeps the per-segment loop."""
 
     def __init__(self, model, default_bandwidth: Optional[float] = None, *,
                  weights: str = 'raw', device='cuda', segment_major: Optional[bool] = None):
-        if weights == 'int8':
-            raise NotImplementedError("weights='int8' (int8 weight-only serving) is not "
-                                      'ported yet: ROADMAP.md, Queue 1, the int8 item')
-        if weights not in ('raw', 'fold'):
+        if weights != 'raw' and weights not in WEIGHTS:
             raise ValueError(f"weights must be 'raw', 'fold' or 'int8', got {weights!r}")
         self.device = _resolve_device(device)
         _check_model_device(model, self.device)
-        if weights == 'fold':
-            model = fold_weight_norm(model)
+        if weights != 'raw':
+            model = prepare_for_inference(model, weights)
         self.model = model
         self.segment_major = (model.segment is not None if segment_major is None
                               else segment_major)

@@ -12,12 +12,18 @@ How each layer streams (the math of ``ops/conv.py`` and ``ops/lstm.py``):
   carry. The first chunk reproduces offline's left padding (reflect by
   default) instead of a zero carry.
 - ``SEANetResnetBlock``: for a float32 block of a weight-acting norm, one
-  call of :func:`..ops.resblock_kernel.resblock` (kernel K3 on CUDA) whose
-  ``left`` halo is the k3 conv's carry, its last ``2d`` activated inputs;
-  otherwise (bf16) the block's conv sequence with that same carry. The first
-  chunk pads as offline does.
+  call of :func:`..ops.resblock_kernel.resblock` (kernel K3 on CUDA; its
+  int8-weight entry ``resblock_int8`` for the int8 twin of ``prepare.py``)
+  whose ``left`` halo is the k3 conv's carry, its last ``2d`` activated
+  inputs; otherwise (bf16) the block's conv sequence with that same carry.
+  The first chunk pads as offline does.
 - ``SLSTM``: carry = per-layer (h, c), through kernel K2 with a carried state
-  on CUDA (:func:`..ops.lstm_kernel.lstm_recurrence`).
+  on CUDA (:func:`..ops.lstm_kernel.lstm_recurrence`, or for the int8 twin
+  ``lstm_recurrence_int8`` on the int8 ``W_hh``).
+
+An int8 twin (``prepare.quantize_weights``) streams with its weights
+dequantized in f32 each call (the JAX package's ``dequantize_weights`` inside
+its chunk programs); its convs then follow the dtype rule below.
 - causal ``SConvTranspose1d`` (``trim_right_ratio == 1``): the raw (untrimmed)
   transposed conv of a chunk is ``n·s + pt`` long (``pt = K - s``); the final
   ``pt`` samples are partial sums that overlap the next chunk's head. They are
@@ -54,7 +60,6 @@ import torch
 import torch.nn.functional as F
 
 from .models.seanet import SEANetDecoder, SEANetEncoder, SEANetResnetBlock
-from .ops import lstm_kernel, resblock_kernel
 from .ops.conv import SConv1d, SConvTranspose1d, _biased
 from .ops.lstm import SLSTM
 from .ops.pad import pad1d
@@ -169,10 +174,8 @@ def _stream_lstm(slstm: SLSTM, spec: LstmSpec, carry, x: torch.Tensor):
     y = x32
     new_h, new_c = [], []
     for k in range(spec.num_layers):
-        w_ih, w_hh, b = slstm.lstm.layer(k)
-        xp = torch.matmul(y, w_ih.t()) + b                 # [T, B, 4H]
-        y, c = lstm_kernel.lstm_recurrence(xp.contiguous(), w_hh.contiguous(),
-                                           hs[:, k].contiguous(), cs[:, k].contiguous())
+        y, c = slstm.lstm.recurrence(k, slstm.lstm.projection(k, y), hs[:, k].contiguous(),
+                                     cs[:, k].contiguous())
         new_h.append(y[-1])
         new_c.append(c)
     y = y + x32
@@ -190,11 +193,10 @@ def _stream_block(block: SEANetResnetBlock, spec: BlockSpec, state: Dict[str, to
     if first and x.shape[-1] <= 2 * spec.dilation:
         raise ValueError(f'first chunk too short for block_1: {x.shape[-1]} '
                          f'<= pad {2 * spec.dilation}')
-    if block.fusable:
-        y, carry = resblock_kernel.resblock(
-            x.contiguous(), *block.fused_weights(), dilation=spec.dilation, causal=True,
-            pad_mode=pad_mode, left=None if first else state['block_1'].contiguous(),
-            return_carry=True)
+    if block.takes_fused():
+        y, carry = block.fused_call(
+            x.contiguous(), dilation=spec.dilation, causal=True, pad_mode=pad_mode,
+            left=None if first else state['block_1'].contiguous(), return_carry=True)
         return y, {'block_1': carry, 'block_3': state['block_3']}
     k3, k1 = spec.convs()
     y, carry = _stream_conv(block.block[1], k3, state['block_1'], F.elu(x), first, pad_mode,

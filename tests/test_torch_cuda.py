@@ -49,7 +49,12 @@ plain version's and the C++ host coder's at K 4, 8 and 32 (card 1024), card
 the symbols; its CDFs equal the host build bit for bit; a truncated stream
 sets ``overrun`` and a symbol outside the card ``overflow``; the on-device coder with a small LM on the card round-trips
 codes with no host sync inside either step loop and raises EOFError on a
-truncated stream.
+truncated stream. The int8-weight entries of K2 and K3 (``prepare.quantize_weights``'s
+twin) give the bits of the f32 entries on the dequantized weights and hold
+their plain versions, K3's at every width (C 4, 8, 12 and 36 whose rows break
+TMA's 16-byte rule, and unaligned int8 weights, take the plain loads), and
+``LiveCodec(weights='int8')`` on the card runs them, equal to the f32 path on
+the dequantized model.
 """
 
 import pytest
@@ -61,6 +66,7 @@ from encodec_pytorch_tpu_torch.models.seanet import SEANetResnetBlock
 from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
 from encodec_pytorch_tpu_torch.ops import disc_im2col_kernel as k5
 from encodec_pytorch_tpu_torch.ops import lstm, lstm_kernel, resblock_kernel, rvq_kernel
+from encodec_pytorch_tpu_torch.ops.int8 import dequantize_int8, quantize_int8
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -396,6 +402,109 @@ def test_seanet_block_512_takes_the_kernel(cuda, causal):
         assert resblock_kernel.resblock.launches == launches + 1
         ref = block.shortcut(x) + block.block(x)   # the conv sequence
     assert _rel_max(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize('T,B,H,carried', [(50, 3, 100, False), (20, 2, 512, False),
+                                           (4, 16, 512, True), (5, 17, 33, True)])
+def test_lstm_int8_kernel_is_the_f32_kernel_on_dequantized_weights(cuda, T, B, H, carried):
+    gen = torch.Generator(device=cuda).manual_seed(T + B + H)
+    xp = torch.randn(T, B, 4 * H, generator=gen, device=cuda)
+    q8, scale = quantize_int8(torch.randn(4 * H, H, generator=gen, device=cuda) / H ** 0.5)
+    state = ((torch.randn(B, H, generator=gen, device=cuda),
+              torch.randn(B, H, generator=gen, device=cuda)) if carried else ())
+    launches = lstm_kernel.lstm_recurrence_int8.launches
+    h, c = lstm_kernel.lstm_recurrence_int8(xp, q8, scale, *state)
+    assert lstm_kernel.lstm_recurrence_int8.launches == launches + 1
+    h32, c32 = lstm_kernel.lstm_recurrence(xp, dequantize_int8(q8, scale), *state)
+    assert torch.equal(h, h32) and torch.equal(c, c32)
+    hp, cp = lstm_kernel.lstm_recurrence_int8_reference(xp, q8, scale, *state)
+    assert float((h - hp).abs().max()) <= 1e-5 and float((c - cp).abs().max()) <= 1e-5
+
+
+def _int8_resblock_weights(C, gen, device):
+    k1, b1, k2, b2, ks, bs = _resblock_weights(C, gen, device)
+    (q1, s1), (q2, s2), (qs, ss) = (quantize_int8(w) for w in (k1, k2, ks))
+    return (q1, s1, b1, q2, s2, b2, qs, ss, bs)
+
+
+def _dequantized(w8):
+    q1, s1, b1, q2, s2, b2, qs, ss, bs = w8
+    return (dequantize_int8(q1, s1), b1, dequantize_int8(q2, s2), b2, dequantize_int8(qs, ss),
+            bs)
+
+
+@pytest.mark.parametrize('C', [32, 64, 128, 256, 512, 36, 4, 8, 12])
+@pytest.mark.parametrize('d', [1, 2])
+def test_resblock_int8_kernel_is_the_f32_kernel_on_dequantized_weights(cuda, C, d):
+    """Every width: the 16-byte TMA rows (C and H multiples of 16) and the
+    plain int8 loads (C 4, 8, 12, 36)."""
+    gen = torch.Generator(device=cuda).manual_seed(C + d)
+    w8 = _int8_resblock_weights(C, gen, cuda)
+    w32 = _dequantized(w8)
+    for T in (1000, 2 * d + 1):
+        x = torch.randn(2, C, T, generator=gen, device=cuda)
+        for causal in (True, False):
+            kw = dict(dilation=d, causal=causal, pad_mode='reflect')
+            got = resblock_kernel.resblock_int8(x, *w8, **kw)
+            assert torch.equal(got, resblock_kernel.resblock(x, *w32, **kw)), (T, causal)
+            assert _rel_max(got, resblock_kernel.resblock_int8_reference(x, *w8, **kw)) <= 1e-5
+        left = torch.randn(2, C, 2 * d, generator=gen, device=cuda)
+        kw = dict(dilation=d, causal=True, left=left, return_carry=True)
+        got = resblock_kernel.resblock_int8(x, *w8, **kw)
+        want = resblock_kernel.resblock(x, *w32, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_resblock_int8_unaligned_weights_take_plain_loads(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w8 = _int8_resblock_weights(64, gen, cuda)
+    x = torch.randn(2, 64, 300, generator=gen, device=cuda)
+    kw = dict(dilation=1, causal=True)
+    moved = tuple(_unaligned(t) if t.dtype == torch.int8 else t for t in w8)
+    assert torch.equal(resblock_kernel.resblock_int8(x, *moved, **kw),
+                       resblock_kernel.resblock_int8(x, *w8, **kw))
+    with pytest.raises(TypeError):
+        resblock_kernel.resblock_int8(x, *_dequantized(w8)[:1], *w8[1:], **kw)
+    with pytest.raises(ValueError, match='scale'):
+        resblock_kernel.resblock_int8(x, w8[0], w8[1][:-1].contiguous(), *w8[2:], **kw)
+    with pytest.raises(TypeError):
+        lstm_kernel.lstm_recurrence_int8(torch.randn(3, 2, 32, device=cuda),
+                                         torch.randn(32, 8, device=cuda),
+                                         torch.ones(32, device=cuda))
+
+
+def test_int8_live_codec_on_the_card(cuda):
+    """``LiveCodec(weights='int8')`` on the card: K2's and K3's int8 entries
+    (never the f32 ones), codes and decode equal to the f32 path on the
+    dequantized model, and close to the int8 twin on the CPU."""
+    import numpy as np
+
+    from encodec_pytorch_tpu_torch import prepare
+    from encodec_pytorch_tpu_torch.serve import LiveCodec
+    model = EncodecModel._get_model([1.5, 3., 6.], 24000, 1, causal=True, n_q=8,
+                                    n_filters=8, name='encodec_24khz',
+                                    generator=torch.Generator().manual_seed(7)).eval()
+    gen = torch.Generator().manual_seed(8)
+    for layer in model.quantizer.vq.layers:
+        layer._codebook.embed.normal_(generator=gen)
+    cpu = LiveCodec(model, weights='int8', device='cpu')
+    live = LiveCodec(model.cuda(), weights='int8', device='cuda')
+    deq = LiveCodec(prepare.dequantize_weights(live.model), device='cuda')
+    x = (np.random.default_rng(9).standard_normal((2, 1, 24000)) * 0.1).astype(np.float32)
+    chip_smoke.reset_counts()
+    codes = live.encode(x, bandwidth=6.)
+    out = live.decode(codes, bandwidth=6.)
+    counts = chip_smoke.read_counts(chip_smoke.CODEC_KERNELS + chip_smoke.INT8_KERNELS)
+    assert counts['lstm_recurrence_int8'] == 4 and counts['resblock_int8'] == 8, counts
+    assert counts['lstm_recurrence'] == 0 and counts['resblock'] == 0, counts
+    codes_d = deq.encode(x, bandwidth=6.)
+    assert torch.equal(codes[0], codes_d[0])
+    assert torch.equal(out, deq.decode(codes, bandwidth=6.))
+    codes_cpu = cpu.encode(x, bandwidth=6.)
+    assert float((codes[0].cpu() == codes_cpu[0]).float().mean()) >= 0.99
+    if torch.equal(codes[0].cpu(), codes_cpu[0]):
+        assert torch.allclose(out.cpu(), cpu.decode(codes_cpu, bandwidth=6.), atol=2e-4,
+                              rtol=1e-4)
 
 
 def test_resblock_rejects_what_it_does_not_take(cuda):

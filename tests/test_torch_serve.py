@@ -13,6 +13,11 @@ width (``n_filters=4``, ``n_q=4``) with ``device='cpu'``:
   ``StreamingCodec`` alone on its signal, codes exactly and audio to atol 2e-5;
   a reused slot starts fresh; a failed step closes the active streams and the
   server serves new ones.
+- int8 weight-only serving: ``LiveCodec(weights='int8')`` builds and serves
+  its model's int8 twin (``prepare.quantized_call`` of it, bit for bit), an
+  unknown ``weights`` raises ``ValueError``; a 2-slot ``StreamingServer``
+  over the twin equals its offline forward to atol 2e-5, rtol 1e-5 (the bar
+  of ``tests/test_streaming_server.py``'s int8 test).
 
 Every ``result`` and ``join`` has a timeout of its own, so a hang fails one
 test. JAX is not needed: these are the port against itself.
@@ -24,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from encodec_pytorch_tpu_torch import prepare
 from encodec_pytorch_tpu_torch.models.model import EncodecModel
 from encodec_pytorch_tpu_torch.serve import CodecServer, LiveCodec, StreamingServer
 from encodec_pytorch_tpu_torch.streaming import StreamingCodec
@@ -81,8 +87,15 @@ def test_live_codec_and_refusals(live):
     ref = model(torch.from_numpy(x))
     np.testing.assert_allclose(dec.numpy(), ref[..., :2000].numpy(), atol=1e-6)
     assert live.encode(x)[0].shape[1] == 4              # default: 3 kbps, n_q 4
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        LiveCodec(model, weights='int8', device='cpu')
+    live8 = LiveCodec(model, weights='int8', device='cpu')
+    assert live8.model is not model and prepare.param_bytes(live8.model) < \
+        0.35 * prepare.param_bytes(model)
+    out8 = live8.roundtrip(x)
+    live8.model.set_target_bandwidth(live8.default_bandwidth)
+    np.testing.assert_array_equal(out8.numpy(),
+                                  prepare.quantized_call(live8.model, torch.from_numpy(x)).numpy())
+    with pytest.raises(ValueError, match="'int8'"):
+        LiveCodec(model, weights='int4', device='cpu')
     with pytest.raises(NotImplementedError, match='not ported yet'):
         CodecServer('codec.ecdz')
     with pytest.raises(ValueError, match='move it'):
@@ -314,6 +327,23 @@ def test_streaming_server_slots_reuse_and_recovery(stream_model):
 
     with pytest.raises(ValueError, match='max_streams'):
         StreamingServer(stream_model, max_streams=1, device='cpu')
+
+
+def test_streaming_server_int8(stream_model):
+    """The int8 twin through the multiplexer equals the twin's offline
+    forward (its weights dequantized, the same f32 arithmetic)."""
+    qmodel = prepare.prepare_for_inference(stream_model, 'int8')
+    server = StreamingServer(qmodel, max_streams=2, chunk_hops=1, max_wait_ms=1.0,
+                             device='cpu')
+    first, hop = server.min_first_chunk_samples, server.chunk_samples
+    sig = _signal(3, first + 3 * hop)
+    offline = prepare.quantized_call(qmodel, torch.from_numpy(sig[None]))[0].numpy()
+    with server:
+        with server.open_stream() as stream:
+            outs = [stream.process(sig[:, :first], timeout=TIMEOUT)]
+            outs += [stream.process(sig[:, first + k * hop:first + (k + 1) * hop],
+                                    timeout=TIMEOUT) for k in range(3)]
+    np.testing.assert_allclose(np.concatenate(outs, -1), offline, atol=2e-5, rtol=1e-5)
 
 
 def test_streaming_server_inflight_chunks_never_hang(stream_model):

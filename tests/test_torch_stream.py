@@ -19,6 +19,12 @@ wav is within 2e-2 of offline; a one-chunk stream's latent is the offline
 latent bit for bit, and the chunked stream's wav is within 1e-3 of offline
 by relative norm while the same weights streamed in f32 are over 1e-3 away
 (measured: 7.2e-5 and 5.9e-3), so the stream does run in bf16.
+
+int8 (the mirror of tests/test_prepare.py's int8 streaming case): the int8
+twin of the tiny model (``prepare.quantize_weights``) streamed with
+``roundtrip_chunk`` over uneven chunks equals its offline ``quantized_call``
+to atol 2e-5, its codes exactly, with its blocks through K3's int8 entry
+(its plain version here).
 """
 
 import jax
@@ -29,7 +35,7 @@ import torch
 
 from encodec_pytorch_tpu import streaming as jstreaming
 from encodec_pytorch_tpu.models.model import EncodecModel as JaxModel
-from encodec_pytorch_tpu_torch import convert
+from encodec_pytorch_tpu_torch import convert, prepare
 from encodec_pytorch_tpu_torch import streaming as tstreaming
 from encodec_pytorch_tpu_torch.models.model import EncodecModel
 from encodec_pytorch_tpu_torch.ops.lstm import SLSTM
@@ -200,6 +206,30 @@ def test_streamed_matches_port_offline(models):
     np.testing.assert_array_equal(torch.cat(codes, -1).numpy(), offline_codes.numpy())
     np.testing.assert_allclose(torch.cat(outs, -1).numpy(), offline.numpy(), atol=ATOL,
                                rtol=RTOL)
+
+
+def test_int8_stream_matches_offline_int8(models, monkeypatch):
+    _, _, tm = models
+    qm = prepare.quantize_weights(prepare.fold_weight_norm(tm))
+    codec = tstreaming.StreamingCodec(qm)
+    T = HOP * 16
+    wav = torch.from_numpy(_wav(T, 6))
+    offline_codes = qm.encode(wav)[0][0]
+    offline = prepare.quantized_call(qm, wav)
+    calls = []
+    real = tstreaming.SEANetResnetBlock.fused_call
+    monkeypatch.setattr(tstreaming.SEANetResnetBlock, 'fused_call',
+                        lambda self, *a, **kw: calls.append(self.int8) or real(self, *a, **kw))
+    enc, dec = codec.init_state(1)
+    outs, codes, pos = [], [], 0
+    for i, n in enumerate(_sizes(codec.min_first_chunk_samples, T, [HOP, 2 * HOP, 3 * HOP])):
+        out, c, enc, dec = codec.roundtrip_chunk(enc, dec, wav[..., pos:pos + n], first=(i == 0))
+        outs.append(out)
+        codes.append(c)
+        pos += n
+    assert calls and all(calls)
+    np.testing.assert_array_equal(torch.cat(codes, -1).numpy(), offline_codes.numpy())
+    np.testing.assert_allclose(torch.cat(outs, -1).numpy(), offline.numpy(), atol=ATOL)
 
 
 def test_stateful_lstm_matches_jax():
