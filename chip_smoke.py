@@ -3,8 +3,10 @@
 (in f32, and with int8 weight-only weights), LM entropy coding, its GAN training step (in f32, and in the default set's
 bf16 with K4 and K5 in their bf16 forms), the trainer's state (checkpoints,
 resume after SIGTERM, the test loop, trained-checkpoint loading, weight-norm
-folding), the 48 kHz stereo family (codec, CodecServer, training step),
-gradient accumulation and the non-finite step guard once on one NVIDIA GPU.
+folding), the mono-nq2 training mode on the multi-channel scene dataset with
+its evaluation (``cal_metrics``), the 48 kHz stereo family (codec,
+CodecServer, training step), gradient accumulation and the non-finite step
+guard once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--before DIR]
 
@@ -161,6 +163,31 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     --weights fold`` writes the ``--weights raw`` bytes and launches K3;
     the 16-slot mux tick over the folded and the raw model, in turns (raw,
     fold, fold, raw; 50 ticks each): host ms a tick, p50 and p99.
+10b. The reference's second training mode, ``train_cli --config
+    config_mono_nq2``, at the yaml's full width (``my_encodec``: causal,
+    weight norm, 32 filters, ratios 8 5 4 2, n_q 2; f32; batch 16 x 24000;
+    ``train_discriminator`` 0.5) through the multi-channel scene dataset, on
+    a synthetic eigenscape-style tree (one 6 s file in each of the 6 train
+    folders, 8 files of 2 s in each of the 2 test folders so that the 16
+    fixed validation segments are distinct; 32 channels, 48 kHz, 16-bit,
+    each channel its own tones and noise). Cut in depth only:
+    ``datasets.fixed_length=48`` (3 steps and a 3-batch test loop),
+    ``common.max_epoch=1``, ``common.save_interval=1`` and
+    ``lr_scheduler.warmup_epoch=0`` (so the coin can fire). Then
+    ``--config config_mono_nq2_resume`` from the epoch-1 file trains epoch
+    2. Finite losses, which tensorboard path the trainer took (events
+    written, or its warning), K4 (forward and dx) and K2 launched; step ms,
+    the loader's host ms a batch (16 ranged reads of 32 channels, resample),
+    peak memory. Kernels against plain from the resumed state at n_q 2,
+    with the discriminator's coin forced true and false, by phase 9's f32
+    bars (and, without the coin, the discriminator's update 0 in both).
+    Last, the first 16 fixed validation segments encoded and decoded at 1.5
+    kbps by the trained model in eval (K1, K2, K3 launched), written as wavs
+    and scored by ``cal_metrics --device cuda``: the means of STOI, SI-SNR
+    and mel distance (reported; no bar), and ``metrics.mel_distance`` on the
+    card within 1e-4 relative of the CPU. Then K4 at this config's shapes
+    (B 16, 24000 samples: the 12 eligible convs, forward and dx), as phase 7
+    checks and times them.
 11. K4 at the 48 kHz training config's shapes (B 32, 48000 stereo samples):
     conv_4's forward (K5 takes conv_1..conv_3's) and the input gradient of
     conv_1..conv_4, as phase 7 checks and times them.
@@ -240,14 +267,15 @@ phases 7 and 11 hold K4's f32 outputs bit-equal to that checkout's.
 
 Output: one line per measurement (each phase's start with the seconds since
 the script started), then a JSON line with each kernel's numbers (launches:
-the 24 and 48 kHz codec CLIs', servers' and LM codec runs' and phase 10's for
-K1, K2 and K3; both training paths' and phase 10's for K4; the 48 kHz training
+the 24 and 48 kHz codec CLIs', servers' and LM codec runs' and phases 10's
+and 10b's for K1, K2 and K3; both training paths' and phases 10's and 10b's
+for K4; the 48 kHz training
 steps' for K5; the on-device LM route's at 24 and 48 kHz for K6, whose ``ms`` is
 a decode step's; phase 6a's int8 serving path's for the int8 entries of K2 and
 K3, whose ``max_abs_err_vs_f32`` is against the f32 kernels; K1's and K2's entries list
 every timed shape under ``shapes``, K3's its 8 offline and 4 tick shapes,
-K4's the totals of both configs, K5's its 9 shapes; the bf16 forms of K4 and
-K5, launched on the bf16 training path and the 48 kHz bf16 step, their
+K4's the totals of the 24 kHz, 48 kHz and mono-nq2 configs, K5's its 9
+shapes; the bf16 forms of K4 and K5, launched on the bf16 training path and the 48 kHz bf16 step, their
 shapes), the ``nvidia-smi`` name
 and power-limit line, and last ``{"ok": true, "device": {...}}``. Without a card,
 or outside a checkout, it exits non-zero and prints no result.
@@ -279,6 +307,16 @@ K2_TOL = 1e-4
 K3_TOL_REL = 1e-5
 K4_TOL_REL = 1e-5
 K5_TOL_REL = 1e-5
+# K4 and K5 against the float64 conv on their phases' inputs, per conv: the
+# relative norm of the difference and the mean signed error toward the
+# reference's sign over its mean magnitude (below 0: outputs shrunk). Summed
+# from zero each k-step, both read at most 2.4e-7 and 4.2e-8 at the three
+# configs' shapes; their earlier forms, which summed every product onto the
+# running sum, 2.2e-6 to 3.6e-6 and -1.9e-6 to -3.1e-6 at every dx of K4 and
+# 2.2e-6 to 5.9e-6 and -3.2e-7 to -4.4e-6 at every forward of K5
+# (scripts/probe_torch_disc_conv_accuracy.py, NVIDIA H100 80GB HBM3, 700 W)
+F64_NORM_REL = 5e-7
+F64_BIAS = 1e-7
 SNR_MIN_DB = 20.0
 TRAIN_LOSS_REL = 1e-3
 TRAIN_GRAD_REL = 1e-3
@@ -687,22 +725,22 @@ def k3_phase(torch, seed, ckpt: Path, before=None):
                 library_ms=tot['plain_ms'], shapes=shapes)
 
 
-def load_before(path: Path):
+def load_before(path: Path, package: str = 'before_port'):
     """The kernel modules of another checkout of the port (``--before``),
-    imported as the package ``before_port`` beside this one; its kernels build
+    imported as the package ``package`` beside this one; its kernels build
     into that checkout's own ``build/``."""
     import importlib
     import importlib.util
     pkg = Path(path).resolve() / 'encodec_pytorch_tpu_torch'
-    spec = importlib.util.spec_from_file_location('before_port', pkg / '__init__.py',
+    spec = importlib.util.spec_from_file_location(package, pkg / '__init__.py',
                                                   submodule_search_locations=[str(pkg)])
     module = importlib.util.module_from_spec(spec)
-    sys.modules['before_port'] = module
+    sys.modules[package] = module
     spec.loader.exec_module(module)
-    ops = importlib.import_module('before_port.ops')
+    ops = importlib.import_module(f'{package}.ops')
     for name in ('_build', 'rvq_kernel', 'resblock_kernel', 'disc_im2col_kernel',
                  'disc_conv_kernel'):
-        importlib.import_module(f'before_port.ops.{name}')
+        importlib.import_module(f'{package}.ops.{name}')
     return ops
 
 
@@ -1352,6 +1390,18 @@ def train_overrides(tmp: Path, seed: int, config: str = 'config') -> list:
             'common.log_interval=1', f'common.seed={seed}', 'lr_scheduler.warmup_epoch=0']
 
 
+def f64_errors(torch, got, ref) -> tuple:
+    """(the relative norm of ``got - ref``, the mean signed error toward
+    ``ref``'s sign over its mean magnitude), ``ref`` float64."""
+    d = got.double() - ref
+    return (float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(ref)),
+            float((d * ref.sign()).mean() / ref.abs().mean()))
+
+
+def f64_ok(e: tuple) -> bool:
+    return e[0] <= F64_NORM_REL and abs(e[1]) <= F64_BIAS
+
+
 def k4_bounds(flops: float, nbytes: float):
     """K4's two bounds in ms, (3xTF32 on the tensor cores, f32 on the CUDA
     cores), each the larger of its operations' time and the bytes' time."""
@@ -1364,8 +1414,12 @@ def k4_phase(torch, seed, config_name: str = 'config', before=None):
     """K4 against cuDNN (TF32 off) at the shapes one discriminator call of the
     training config gives it: every conv K4 takes runs forward and dx, and at
     48 kHz, where K5 takes conv_1..conv_3's forward, those convs run K4's dx
-    only. With ``before`` (another checkout), its K4 must give the same bits.
-    Returns the forward and dx summaries over the call."""
+    only. Each output is also held to the float64 conv, by relative norm and
+    by its mean signed error (``F64_NORM_REL``, ``F64_BIAS``). With ``before``
+    (another checkout), its K4 must give the same bits. Returns the forward
+    and dx summaries over the call."""
+    import torch.nn.functional as F
+
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.ops import disc_conv_kernel as dck
 
@@ -1378,7 +1432,7 @@ def k4_phase(torch, seed, config_name: str = 'config', before=None):
     keys = ('f_ms', 'f_lib', 'f_bound', 'f_bound32', 'f_kern', 'f_pack',
             'd_ms', 'd_lib', 'd_bound', 'd_bound32', 'd_kern', 'd_pack')
     tot = {k: 0.0 for k in keys}
-    err_f = err_d = 0.0
+    err_f = err_d = err64 = bias64 = 0.0
     n_fwd = 0
     for x, w, b, m in calls:
         geo = (m.stride, m.dilation, m.padding)
@@ -1400,10 +1454,17 @@ def k4_phase(torch, seed, config_name: str = 'config', before=None):
             f_pack = cuda_ms(torch, lambda: dck.pack_weight_cuda(w, m.stride[1], dx=False))
             f_lib = cuda_ms(torch, lambda: dck.disc_conv_forward_reference(x, w, b, *geo))
             f_bounds = k4_bounds(flops, 4.0 * (x.numel() + w.numel() + b.numel() + y.numel()))
-            line += (f' fwd max |d| {ef:.3e} ({rf:.2e} of max), wrapper {f_ms:.4f} ms (kernel '
+            e64 = f64_errors(torch, y, F.conv2d(x.double(), w.double(), b.double(),
+                                                stride=m.stride, padding=m.padding,
+                                                dilation=m.dilation))
+            line += (f' fwd max |d| {ef:.3e} ({rf:.2e} of max), from float64 {e64[0]:.2e} by '
+                     f'norm, bias {e64[1]:+.2e}, wrapper {f_ms:.4f} ms (kernel '
                      f'{f_kern:.4f} ms, weight packing {f_pack:.4f} ms), cuDNN {f_lib:.4f} ms, '
                      f'bound {f_bounds[0]:.4f} ms (3xTF32) / {f_bounds[1]:.4f} ms (f32);')
             check(rf <= K4_TOL_REL, f'K4 forward disagrees with cuDNN at x {tuple(x.shape)}: {rf}')
+            check(f64_ok(e64), f'K4 forward drifts from float64 at x {tuple(x.shape)}: {e64}')
+            err64 = max(err64, e64[0])
+            bias64 = max(bias64, abs(e64[1]))
             if before is not None:
                 same = torch.equal(y, before.disc_conv_kernel.disc_conv_forward(x, w, b, *geo))
                 line += f' bit-equal to the earlier kernel: {same};'
@@ -1427,10 +1488,17 @@ def k4_phase(torch, seed, config_name: str = 'config', before=None):
         d_pack = cuda_ms(torch, lambda: dck.pack_weight_cuda(w, m.stride[1], dx=True))
         d_lib = cuda_ms(torch, lambda: dck.disc_conv_input_grad_reference(g, w, x.shape, *geo))
         d_bounds = k4_bounds(flops, 4.0 * (g.numel() + w.numel() + dx.numel()))
-        log(f'{line} dx max |d| {ed:.3e} ({rd:.2e} of max), wrapper {d_ms:.4f} ms (kernel '
+        e64 = f64_errors(torch, dx, torch.nn.grad.conv2d_input(
+            x.shape, w.double(), g.double(), stride=m.stride, padding=m.padding,
+            dilation=m.dilation))
+        log(f'{line} dx max |d| {ed:.3e} ({rd:.2e} of max), from float64 {e64[0]:.2e} by norm, '
+            f'bias {e64[1]:+.2e}, wrapper {d_ms:.4f} ms (kernel '
             f'{d_kern:.4f} ms, weight packing {d_pack:.4f} ms), cuDNN {d_lib:.4f} ms, bound '
             f'{d_bounds[0]:.4f} ms (3xTF32) / {d_bounds[1]:.4f} ms (f32)')
         check(rd <= K4_TOL_REL, f'K4 dx disagrees with cuDNN at x {tuple(x.shape)}: {rd}')
+        check(f64_ok(e64), f'K4 dx drifts from float64 at x {tuple(x.shape)}: {e64}')
+        err64 = max(err64, e64[0])
+        bias64 = max(bias64, abs(e64[1]))
         if before is not None:
             same = torch.equal(dx, before.disc_conv_kernel.disc_conv_input_grad(g, w, x.shape,
                                                                                  *geo))
@@ -1446,7 +1514,9 @@ def k4_phase(torch, seed, config_name: str = 'config', before=None):
         f'{tot["f_pack"]:.3f} ms) vs cuDNN {tot["f_lib"]:.3f} ms (bound {tot["f_bound"]:.3f} ms '
         f'3xTF32, {tot["f_bound32"]:.3f} ms f32); dx {tot["d_ms"]:.3f} ms (kernel '
         f'{tot["d_kern"]:.3f} ms, packing {tot["d_pack"]:.3f} ms) vs cuDNN {tot["d_lib"]:.3f} ms '
-        f'(bound {tot["d_bound"]:.3f} ms 3xTF32, {tot["d_bound32"]:.3f} ms f32)')
+        f'(bound {tot["d_bound"]:.3f} ms 3xTF32, {tot["d_bound32"]:.3f} ms f32); from float64 '
+        f'at most {err64:.2e} by norm and {bias64:.2e} of bias (bars {F64_NORM_REL:g}, '
+        f'{F64_BIAS:g})')
     fwd, dx = ({'max_abs_err': err, 'ms': tot[p + 'ms'], 'plain_ms': tot[p + 'lib'],
                 'bound_ms': tot[p + 'bound'], 'bound_by': 'operations',
                 'library_ms': tot[p + 'lib'], 'bound_f32_ms': tot[p + 'bound32'],
@@ -1458,7 +1528,8 @@ def k4_phase(torch, seed, config_name: str = 'config', before=None):
 def k5_phase(torch, seed, before=None):
     """K5 against its plain version (the im2col GEMM) and cuDNN's ``F.conv2d``
     at the 9 F-stride-2 conv shapes of one discriminator call at the 48 kHz
-    training config, forward and the trainable route's dx and dW; beside it,
+    training config, forward (also against the float64 conv, by relative
+    norm and mean signed error) and the trainable route's dx and dW; beside it,
     K4's forward and (with ``before``) the other checkout's K5 on the same
     inputs. Returns the summary over the 9 convs, each shape under
     ``shapes``."""
@@ -1475,7 +1546,7 @@ def k5_phase(torch, seed, before=None):
     keys = ('ms', 'device_ms', 'kernel_ms', 'packing_ms', 'plain_ms', 'library_ms', 'k4_ms',
             'bound_ms', 'bound_f32_ms', 'gflop') + (('before_ms',) if before is not None else ())
     tot = {k: 0.0 for k in keys}
-    worst = worst_grad = 0.0
+    worst = worst_grad = worst64 = bias64 = 0.0
     shapes = []
     for x, w, b, m in calls:
         geo = (m.dilation, m.padding)
@@ -1486,6 +1557,8 @@ def k5_phase(torch, seed, before=None):
         top = float(y_lib.abs().max())
         e_plain = float((y - y_plain).abs().max())
         e_lib = float((y - y_lib).abs().max())
+        e64 = f64_errors(torch, y, F.conv2d(x.double(), w.double(), b.double(), stride=k5.STRIDE,
+                                            padding=m.padding, dilation=m.dilation))
         del y_plain
         same = bool(torch.equal(y, k5.disc_im2col_forward(x, w, b, *geo)))
         wk = k5.pack_weight_cuda(w)
@@ -1516,7 +1589,8 @@ def k5_phase(torch, seed, before=None):
         row['rel_err'] = max(e_plain, e_lib) / top
         line = (f'K5 disc_im2col x {tuple(x.shape)} dilation {m.dilation}, '
                 f'{row["gflop"]:.2f} GFLOP: max |d| vs plain {e_plain:.3e}, vs cuDNN '
-                f'{e_lib:.3e} ({row["rel_err"]:.2e} of max); bit-equal on a repeat: {same}; '
+                f'{e_lib:.3e} ({row["rel_err"]:.2e} of max), from float64 {e64[0]:.2e} by norm, '
+                f'bias {e64[1]:+.2e}; bit-equal on a repeat: {same}; '
                 f'autograd dx, dW vs cuDNN {e_grad[0]:.2e}, {e_grad[1]:.2e} of max; wrapper '
                 f'{row["ms"]:.4f} ms (on the device {fmt_ms(row["device_ms"])}; kernel '
                 f'{row["kernel_ms"]:.4f} ms, weight packing {row["packing_ms"]:.4f} ms), plain '
@@ -1534,6 +1608,9 @@ def k5_phase(torch, seed, before=None):
         log(line)
         check(row['rel_err'] <= K5_TOL_REL and max(e_grad) <= K5_TOL_REL and same,
               f'K5 disagrees at x {tuple(x.shape)}: {e_plain}, {e_lib}, {e_grad}, repeat {same}')
+        check(f64_ok(e64), f'K5 drifts from float64 at x {tuple(x.shape)}: {e64}')
+        worst64 = max(worst64, e64[0])
+        bias64 = max(bias64, abs(e64[1]))
         worst = max(worst, e_plain, e_lib)
         worst_grad = max(worst_grad, *e_grad)
         for k in keys:
@@ -1545,7 +1622,8 @@ def k5_phase(torch, seed, before=None):
         f'{tot["kernel_ms"]:.3f} ms, packing {tot["packing_ms"]:.3f} ms), plain '
         f'{tot["plain_ms"]:.3f} ms, cuDNN {tot["library_ms"]:.3f} ms, K4 forward '
         f'{tot["k4_ms"]:.3f} ms, bound {tot["bound_ms"]:.3f} ms (3xTF32) / '
-        f'{tot["bound_f32_ms"]:.3f} ms (f32); worst autograd error {worst_grad:.2e} of max'
+        f'{tot["bound_f32_ms"]:.3f} ms (f32); worst autograd error {worst_grad:.2e} of max; '
+        f'from float64 at most {worst64:.2e} by norm and {bias64:.2e} of bias'
         + (f'; the earlier kernel {tot["before_ms"]:.3f} ms' if before is not None else ''))
     return dict(max_abs_err=worst, **{k: v for k, v in tot.items() if k != 'gflop'},
                 bound_by='operations', shapes=shapes)
@@ -1820,12 +1898,13 @@ def training_phase(torch, seed, tmp: Path, config: str = 'config', extra=(), lab
 
 
 def kernel_vs_plain_step(torch, model0, disc0, balancer0, opt_g0, opt_d0, batch, n_q: int,
-                         sr: int, seed: int):
+                         sr: int, seed: int, train_disc: bool = True):
     """One step from the given state twice, on copies: through the kernels
     (under ``torch.profiler``) and with every kernel swapped for its plain
-    version. Returns (kernel metrics, plain metrics, relative differences of
-    the losses, the gradients and the updates, the profiled step's wall ms,
-    the profiler)."""
+    version, the discriminator updated or not as ``train_disc`` says.
+    Returns (kernel metrics, plain metrics, relative differences of the
+    losses, the gradients (the generator's, and the discriminator's when it
+    trains) and the updates, the profiled step's wall ms, the profiler)."""
     import copy
 
     from encodec_pytorch_tpu_torch.train.step import make_optimizer, train_step
@@ -1842,22 +1921,21 @@ def kernel_vs_plain_step(torch, model0, disc0, balancer0, opt_g0, opt_d0, batch,
         with (plain_path() if plain else torch.profiler.profile(activities=acts)) as prof:
             t0 = time.perf_counter()
             metrics = train_step(model, disc, copy.deepcopy(balancer0), opt_g, opt_d,
-                                 batch, n_q=n_q, train_disc=True, lr_g=3e-4, lr_d=3e-4,
+                                 batch, n_q=n_q, train_disc=train_disc, lr_g=3e-4, lr_d=3e-4,
                                  sample_rate=sr,
                                  generator=torch.Generator(device='cuda').manual_seed(seed))
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         return ({k: float(v) for k, v in metrics.items()},
-                (_flat(model, True), _flat(disc, True)),
+                (_flat(model, True),) + ((_flat(disc, True),) if train_disc else ()),
                 (_flat(model, False) - before[0], _flat(disc, False) - before[1]), wall, prof)
 
     m_k, g_k, u_k, wall, prof = one_step(plain=False)
     m_p, g_p, u_p, _, _ = one_step(plain=True)
-    rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
     diffs = {'loss': {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-30)
                       for k in ('l_t', 'l_f', 'l_g', 'l_feat', 'loss_w', 'loss_disc')},
-             'grad': [rel(a, b) for a, b in zip(g_k, g_p)],
-             'update': [rel(a, b) for a, b in zip(u_k, u_p)]}
+             'grad': [_rel_norm(a, b) for a, b in zip(g_k, g_p)],
+             'update': [_rel_norm(a, b) for a, b in zip(u_k, u_p)]}
     return m_k, m_p, diffs, wall, prof
 
 
@@ -2145,6 +2223,199 @@ def trainer_state_phase(torch, seed, tmp: Path, smi: str) -> dict:
 
 LM24 = 'lm_24khz_seeded.th'
 LM48 = 'lm_48khz_seeded.th'
+
+
+# the mono-nq2 phase's scene tree (eigenscape's layout: 6 train and 2 test
+# folders of ambisonic recordings): 32 channels at 48 kHz, so that every item
+# is resampled; 16 test files so that the fixed validation segments (one a
+# file) are 16 distinct ones
+SCENE_SR = 48_000
+SCENE_CHANNELS = 32
+SCENE_SECONDS = {'train': 6, 'test': 2}
+SCENE_TEST_FILES = 8           # in each of the 2 test folders
+MONO_NQ2_CUTS = ['datasets.fixed_length=48', 'common.max_epoch=1', 'common.save_interval=1',
+                 'lr_scheduler.warmup_epoch=0']
+MONO_NQ2_SEGMENTS = 16
+MEL_CARD_REL = 1e-4
+
+
+def write_scene_tree(root: Path, seed: int) -> int:
+    """The scene tree under ``root``: one file in each train folder and
+    ``SCENE_TEST_FILES`` in each test folder, 16-bit PCM, each channel two
+    tones of its own plus noise. Returns its size in bytes."""
+    from encodec_pytorch_tpu_torch.data.multi_channel import TEST_FOLDERS, TRAIN_FOLDERS
+    from encodec_pytorch_tpu_torch.utils import write_wav
+    rng = np.random.default_rng(seed)
+    size = 0
+    for mode, folders, n_files in (('train', TRAIN_FOLDERS, 1),
+                                   ('test', TEST_FOLDERS, SCENE_TEST_FILES)):
+        t = np.arange(SCENE_SECONDS[mode] * SCENE_SR) / SCENE_SR
+        for folder in folders:
+            for i in range(n_files):
+                freqs = rng.uniform(80, 6000, (SCENE_CHANNELS, 2, 1))
+                amps = rng.uniform(0.05, 0.3, (SCENE_CHANNELS, 2, 1))
+                wav = (amps * np.sin(2 * np.pi * freqs * t)).sum(1)
+                wav += 0.02 * rng.standard_normal(wav.shape)
+                path = root / folder / f'scene_{i}.wav'
+                write_wav(path, wav.astype(np.float32), SCENE_SR)
+                size += path.stat().st_size
+    return size
+
+
+def mono_nq2_phase(torch, seed, tmp: Path, smi: str) -> dict:
+    """The reference's second training mode at ``config_mono_nq2``'s full
+    width: ``train_cli`` through the multi-channel scene set, the resume
+    through ``config_mono_nq2_resume``, kernels against plain with the
+    discriminator's coin forced both ways, then the trained codec's decode of
+    the fixed validation segments at 1.5 kbps scored by ``cal_metrics`` on
+    the card. Returns the kernels' launch counts on the training and decode
+    paths."""
+    import logging
+
+    from encodec_pytorch_tpu_torch import cal_metrics, metrics, train_cli
+    from encodec_pytorch_tpu_torch.data import MultiChannelAudioDataset
+    from encodec_pytorch_tpu_torch.utils import write_wav
+
+    entries = _all_entries()
+    names = CODEC_KERNELS + TRAIN_KERNELS
+    t0 = time.perf_counter()
+    nbytes = write_scene_tree(tmp / 'scenes', seed + 13)
+    log(f'mono nq2: scene tree of {len(list((tmp / "scenes").rglob("*.wav")))} files '
+        f'({SCENE_CHANNELS} channels, {SCENE_SR} Hz, 16-bit), {nbytes / 1e6:.1f} MB, written in '
+        f'{time.perf_counter() - t0:.2f} s')
+    save = tmp / 'checkpoints'
+    common = [f'datasets.data_root={tmp / "scenes"}', f'checkpoint.save_folder={save}/',
+              'common.log_interval=1', f'common.seed={seed}']
+    warnings = []          # the trainers' warnings
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logging.getLogger('encodec_pytorch_tpu_torch').addHandler(handler)
+    try:
+        for fn in entries.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(['--device', 'cuda', '--config', 'config_mono_nq2',
+                                  *common, *MONO_NQ2_CUTS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ckpt = Path(f'{trainer.config.checkpoint.save_location}epoch1_lr'
+                    f'{trainer.config.optimization.lr}.ckpt')
+        t0 = time.perf_counter()
+        resumed = train_cli.main(['--device', 'cuda', '--config', 'config_mono_nq2_resume',
+                                  *common, *MONO_NQ2_CUTS, f'checkpoint.checkpoint_path={ckpt}',
+                                  'common.max_epoch=2'])
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        launches = {k: entries[k].launches for k in names}
+    finally:
+        logging.getLogger('encodec_pytorch_tpu_torch').removeHandler(handler)
+
+    cfg, model = trainer.config, trainer.model
+    summary, again = trainer.history[-1], resumed.history[-1]
+    step_ms, data_ms = summary['step_ms'], trainer.data_ms
+    batch, cut = int(cfg.datasets.batch_size), trainer.tensor_cut
+    tb = [w for w in warnings if w.startswith('tensorboard unavailable')]
+    events = sorted((save / 'runs').glob('events.out.tfevents.*'))
+    log(f'mono nq2 on {smi}: train_cli --config config_mono_nq2 at full width (my_encodec, '
+        f'causal, weight_norm, filters {cfg.model.filters}, ratios {list(cfg.model.ratios)}, '
+        f'n_q {model.quantizer.n_q}, {model.encoder.dtype}), {summary["steps"]} steps of '
+        f'{batch} x 1 x {cut} (1 s windows of one random channel of a random scene file, '
+        f'resampled {SCENE_SR} -> {cfg.model.sample_rate} Hz), train_discriminator '
+        f'{cfg.model.train_discriminator}; cut in depth only: {" ".join(MONO_NQ2_CUTS)} '
+        f'(the yaml: fixed_length 27600, max_epoch 300, save_interval 2, warmup_epoch 5); '
+        f'{len(trainer.testloader)} test batches; {wall:.2f} s (set-up included); ms per step '
+        f'{[round(t, 1) for t in step_ms]}, median after the first '
+        f'{statistics.median(step_ms[1:]):.1f} ms; the loader\'s host ms a batch (16 ranged '
+        f'reads of 32 channels, resample, crop) {[round(t, 1) for t in data_ms]}, median '
+        f'{statistics.median(data_ms):.1f} ms; peak memory {peak_gb:.2f} GB; disc updated on '
+        f'{summary["disc_updated"] * summary["steps"]:.0f} of {summary["steps"]} steps')
+    log(f'mono nq2: resume through config_mono_nq2_resume from {ckpt.name}: epoch '
+        f'{resumed.resume_epoch + 1}, {again["steps"]} steps, {resume_wall:.2f} s, ms per step '
+        f'{[round(t, 1) for t in again["step_ms"]]}; epoch means ' + json.dumps(
+            {k: round(v, 5) for k, v in again.items() if k not in ('step_ms', 'steps')}))
+    log('mono nq2: tensorboard: ' + (f'{len(events)} event file(s) written under {save}/runs'
+                                      if events else f'not written, the trainer warned: {tb}'))
+    log(f'mono nq2: kernel launches on the training path (train_cli and the resume) {launches}')
+    check(isinstance(trainer.trainset, MultiChannelAudioDataset)
+          and model.quantizer.n_q == 2 and model.encoder.dtype == torch.float32
+          and (batch, cut) == (16, 24000) and cfg.model.train_discriminator == 0.5,
+          'the mono-nq2 run is not at the yaml\'s widths')
+    check(summary['steps'] == 3 and len(trainer.testloader) == 3, 'expected 3 steps and 3 test '
+          f'batches, ran {summary["steps"]} and {len(trainer.testloader)}')
+    check(resumed.resume_epoch == 1 and again['steps'] == 3 and resumed.step == 6,
+          'the resume did not train epoch 2')
+    for s in (summary, again):
+        check(all(np.isfinite(v) for k, v in s.items() if k not in ('step_ms', 'steps')),
+              'non-finite training metrics')
+    check(bool(events) != bool(tb), f'tensorboard neither written nor warned: {tb}')
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS + ('lstm_recurrence',)),
+          f'the training path did not go through K4 and K2: {launches}')
+
+    inited = [bool(layer._codebook.inited) for layer in resumed.model.quantizer.vq.layers]
+    check(all(inited), f'codebooks not initialized: {inited}')
+    clips = torch.from_numpy(make_clip(seed + 21, batch, cut / SR)).cuda()
+    out = {'step_ms': statistics.median(step_ms[1:]), 'data_ms': statistics.median(data_ms),
+           'peak_gb': peak_gb}
+    for coin in (True, False):
+        m_k, m_p, rel, prof_ms, prof = kernel_vs_plain_step(
+            torch, resumed.model, resumed.disc, resumed.balancer, resumed.opt_g,
+            resumed.opt_d, clips, 2, SR, seed, train_disc=coin)
+        busy = busy_ms(torch, prof)
+        log(f'mono nq2: one step kernels vs plain from the resumed state, n_q 2, the '
+            f'discriminator\'s coin {coin}: loss relative diffs {rel["loss"]}; gradient '
+            f'relative norm diffs {rel["grad"]}; update relative norm diffs {rel["update"]}; '
+            f'the kernel step under torch.profiler: wall {prof_ms:.1f} ms, device busy '
+            f'{busy:.1f} ms, idle share {1 - busy / prof_ms:.3f}')
+        check(all(v <= TRAIN_LOSS_REL for v in rel['loss'].values())
+              and all(v <= TRAIN_GRAD_REL for v in rel['grad'])
+              and all(v <= TRAIN_UPDATE_REL for v in rel['update'])
+              and len(rel['grad']) == (2 if coin else 1) and m_k['disc_updated'] == float(coin)
+              and (coin or rel['update'][1] == 0.0),
+              f'the kernel step disagrees with the plain step (coin {coin})')
+        if coin:
+            out.update(busy_ms=busy, idle=1 - busy / prof_ms)
+
+    testset = resumed.testset
+    ref_dir, deg_dir = tmp / 'metrics' / 'ref', tmp / 'metrics' / 'deg'
+    segments = np.stack([testset[i] for i in range(MONO_NQ2_SEGMENTS)])
+    check(len({s['audio_path'] for s in testset.fixed_segments[:MONO_NQ2_SEGMENTS]})
+          == MONO_NQ2_SEGMENTS, 'the fixed validation segments are not 16 distinct ones')
+    model = resumed.model.eval()
+    model.set_target_bandwidth(1.5)
+    for fn in entries.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        frames = model.encode(torch.from_numpy(segments).cuda())
+        decoded = model.decode(frames)[..., :segments.shape[-1]].cpu().numpy()
+    for i in range(MONO_NQ2_SEGMENTS):
+        write_wav(ref_dir / f'seg{i:02d}.wav', segments[i], SR)
+        write_wav(deg_dir / f'seg{i:02d}_bw1.5.wav', decoded[i], SR)
+    means = cal_metrics.main(['-r', str(ref_dir), '-d', str(deg_dir), '-s', str(SR),
+                              '-o', str(tmp / 'metrics' / 'scores.txt'), '--device', 'cuda'])
+    torch.cuda.synchronize()
+    decode_launches = {k: entries[k].launches for k in names}
+    codes = frames[0][0]                  # [B, K, T']
+    log(f'mono nq2: {MONO_NQ2_SEGMENTS} fixed validation segments (1 s each) encoded and decoded '
+        f'at 1.5 kbps (codes {list(codes.shape)}) and scored by cal_metrics --device cuda in '
+        f'{time.perf_counter() - t0:.2f} s: means ' + json.dumps(
+            {k: round(v, 4) for k, v in means.items()}) + ' (seeded weights after 6 steps: '
+        f'reported, no bar); kernel launches {decode_launches}')
+    ref, deg = segments[0, 0], decoded[0, 0]
+    card, cpu = (metrics.mel_distance(ref, deg, SR, device=d) for d in ('cuda', 'cpu'))
+    log(f'mono nq2: mel_distance of segment 0 on the card {card:.7f}, on the CPU {cpu:.7f} '
+        f'(relative {abs(card - cpu) / abs(cpu):.2e})')
+    check(codes.shape[1] == 2 and np.isfinite(decoded).all()
+          and decoded.shape == segments.shape, 'the decode is not n_q 2 or not finite')
+    check(set(means) >= {'stoi', 'si_snr', 'mel_dist'}
+          and all(np.isfinite(v) for v in means.values()), f'bad metric means {means}')
+    check(abs(card - cpu) <= MEL_CARD_REL * abs(cpu), 'mel_distance on the card disagrees')
+    check(all(decode_launches[k] > 0 for k in CODEC_KERNELS),
+          f'the decode did not go through K1, K2 and K3: {decode_launches}')
+    out.update(metrics=means, launches={k: launches[k] + decode_launches[k] for k in names})
+    return out
 
 
 def write_seeded_lm(torch, seed: int, path: Path, n_q: int):
@@ -3259,11 +3530,22 @@ def run(seed: int, before_dir=None) -> int:
         launches[k] += state_launches[k]
     for k in TRAIN_KERNELS:
         train_launches[k] += state_launches[k]
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('mono nq2')
+        mono = mono_nq2_phase(torch, seed, Path(tmp), smi)
+    for k in CODEC_KERNELS:
+        launches[k] += mono['launches'][k]
+    for k in TRAIN_KERNELS:
+        train_launches[k] += mono['launches'][k]
+    phase('K4 at mono nq2')
+    k4_fwd_m, k4_dx_m = k4_phase(torch, seed, 'config_mono_nq2', before)
     phase('K4 at 48 kHz')
     k4_fwd48, k4_dx48 = k4_phase(torch, seed, 'config_48k_stereo', before)
-    for summary, at48 in ((k4_fwd, k4_fwd48), (k4_dx, k4_dx48)):
-        summary['shapes'] = [dict(summary, config='config'), dict(at48, config='config_48k_stereo')]
-        summary['max_abs_err'] = max(summary['max_abs_err'], at48['max_abs_err'])
+    for summary, at48, mono_shapes in ((k4_fwd, k4_fwd48, k4_fwd_m), (k4_dx, k4_dx48, k4_dx_m)):
+        summary['shapes'] = [dict(summary, config='config'), dict(at48, config='config_48k_stereo'),
+                             dict(mono_shapes, config='config_mono_nq2')]
+        summary['max_abs_err'] = max(summary['max_abs_err'], at48['max_abs_err'],
+                                     mono_shapes['max_abs_err'])
     phase('K5')
     k5 = k5_phase(torch, seed, before)
     with tempfile.TemporaryDirectory() as tmp:

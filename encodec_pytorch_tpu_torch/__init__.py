@@ -3,8 +3,10 @@
 This package runs the EnCodec codec paths (the causal 24 kHz mono model and
 the segmented, normalized 48 kHz stereo model: SEANet encoder, LSTM
 bottleneck, residual vector quantizer, packed ``.ecdc`` bitstream, LM
-entropy coding), their GAN training step (``train/``, ``train_cli.py``),
-streaming and serving in PyTorch, with hand-written CUDA kernels for the hot
+entropy coding), their GAN training step (``train/``, ``train_cli.py``; on
+CSVs of wavs or on multi-channel scene recordings, ``data/``), streaming,
+serving and objective metrics (``metrics.py``, ``cal_metrics.py``) in
+PyTorch, with hand-written CUDA kernels for the hot
 loops the JAX package ran as Pallas kernels: the RVQ nearest-code cascade
 (``ops/rvq_kernel.py``), the LSTM recurrence (``ops/lstm_kernel.py``), the
 fused SEANet resblock (``ops/resblock_kernel.py``), the discriminator's

@@ -2,34 +2,39 @@
 overrides.
 
 Port of ``encodec_pytorch_tpu/config.py``. The machine with the card has no
-pyyaml, so the defaults that the training slice reads are held here as two
-named sets, copied from the JAX package's yaml files (same groups, keys and
-values): ``config`` from ``encodec_pytorch_tpu/configs/config.yaml`` (24 kHz
-mono) and ``config_48k_stereo`` from ``configs/config_48k_stereo.yaml``
+pyyaml, so the defaults that the trainer reads are held here as four named
+sets, copied from the JAX package's yaml files (same groups, keys and values):
+``config`` from ``encodec_pytorch_tpu/configs/config.yaml`` (24 kHz mono, a
+CSV dataset), ``config_48k_stereo`` from ``configs/config_48k_stereo.yaml``
 (48 kHz stereo: non-causal, ``time_group_norm``, normalized 1 s segments,
-batch 32 × 48000). Override values are parsed without yaml:
-``true``/``false``, ``none``/``null``, numbers (``3e-4``, ``24_000``), Python
-literals (``[1024, 512]``), else the string itself; then ``${a.b}``
+batch 32 × 48000), ``config_mono_nq2`` from ``configs/config_mono_nq2.yaml``
+(the multi-channel scene dataset under ``datasets.data_root``: 1 s mono
+windows, batch 16 × 24000, ``fixed_length`` 27600 items an epoch; ``model.n_q``
+2, a discriminator update on half the steps, f32) and
+``config_mono_nq2_resume`` from ``configs/config_mono_nq2_resume.yaml`` (the
+same, resuming from ``checkpoint.checkpoint_path``;
+``checkpoint.disc_checkpoint_path`` is accepted and unused, as in the JAX
+trainer: the one file holds both models). Override values are parsed without
+yaml: ``true``/``false``, ``none``/``null``, numbers (``3e-4``, ``24_000``),
+Python literals (``[1024, 512]``), else the string itself; then ``${a.b}``
 references are resolved, as the JAX package resolves them (the checkpoint
 ``save_location`` template).
 
 ``tpu.compute_dtype`` is the yaml's: ``bfloat16`` in ``config`` (the JAX
 package's default, ``configs/config.yaml:71``: bf16 activations, f32 master
 weights, f32 in the LSTM, the quantizer and the losses; ``float32`` by
-override) and ``float32`` in ``config_48k_stereo`` (its yaml's ``:69``).
-``tpu.grad_accum_steps`` (``config.yaml:104-111``) and
-``tpu.skip_nonfinite_steps`` (``:112-117``) are the yaml's too. The default
-that differs from the yaml: ``tpu.disc_pallas_v2`` is True (the
-discriminator's eligible convs go through the CUDA kernel K4; False takes
-``F.conv2d``). The key
-``tpu.disc_im2col`` is the port's own: True puts the forward of the
-discriminator's F-stride-2 convs on the CUDA kernel K5 (the im2col GEMM of
+override) and ``float32`` in the others. ``tpu.grad_accum_steps``
+(``config.yaml:104-111``) and ``tpu.skip_nonfinite_steps`` (``:112-117``) are
+the yaml's too. The default that differs from the yamls: ``tpu.disc_pallas_v2``
+is True in every set (the discriminator's eligible convs go through the CUDA
+kernel K4; False takes ``F.conv2d``). The key ``tpu.disc_im2col`` is the
+port's own: True puts the forward of the discriminator's F-stride-2 convs on
+the CUDA kernel K5 (the im2col GEMM of
 ``encodec_pytorch_tpu/ops/pallas_conv2d.py``), False leaves them to K4 or
 ``F.conv2d``. It selects between two implementations of the same conv; the
 JAX yaml has no such key because the JAX package wires that kernel nowhere.
-It is False in ``config`` (so the 24 kHz step runs as it did before the key
-existed) and True in ``config_48k_stereo``. Keys of the yaml that the port
-does not read are left out.
+It is True in ``config_48k_stereo`` only. Keys of the yaml that the port does
+not read are left out.
 """
 
 import ast
@@ -44,7 +49,8 @@ DEFAULTS: Dict[str, Any] = {
     'common': {'save_interval': 2, 'test_interval': 5, 'log_interval': 100, 'max_epoch': 100,
                'seed': 3401},
     'datasets': {'train_csv_path': './datasets/train.csv',
-                 'test_csv_path': './datasets/test.csv', 'batch_size': 12,
+                 'test_csv_path': './datasets/test.csv', 'dataset': 'csv', 'data_root': '',
+                 'batch_size': 12,
                  'tensor_cut': 72000, 'fixed_length': 0},
     'checkpoint': {'resume': False, 'checkpoint_path': '', 'save_folder': './checkpoints/',
                    'save_location': _SAVE_LOCATION},
@@ -65,7 +71,8 @@ DEFAULTS_48K_STEREO: Dict[str, Any] = {
     'common': {'save_interval': 2, 'test_interval': 5, 'log_interval': 100, 'max_epoch': 100,
                'seed': 3401},
     'datasets': {'train_csv_path': './datasets/train_48k.csv',
-                 'test_csv_path': './datasets/test_48k.csv', 'batch_size': 32,
+                 'test_csv_path': './datasets/test_48k.csv', 'dataset': 'csv', 'data_root': '',
+                 'batch_size': 32,
                  'tensor_cut': 48000, 'fixed_length': 0},
     'checkpoint': {'resume': False, 'checkpoint_path': '', 'save_folder': './checkpoints_48k/',
                    'save_location': _SAVE_LOCATION},
@@ -83,8 +90,39 @@ DEFAULTS_48K_STEREO: Dict[str, Any] = {
             'async_checkpoint': True},
 }
 
+DEFAULTS_MONO_NQ2: Dict[str, Any] = {
+    'common': {'save_interval': 2, 'test_interval': 5, 'log_interval': 100, 'max_epoch': 300,
+               'seed': 3401},
+    'datasets': {'dataset': 'multi_channel', 'data_root': '/scratch/eigenscape',
+                 'train_csv_path': '', 'test_csv_path': '', 'batch_size': 16,
+                 'tensor_cut': 24000, 'fixed_length': 27600},
+    'checkpoint': {'resume': False, 'checkpoint_path': '', 'disc_checkpoint_path': '',
+                   'save_folder': './checkpoints_mono_nq2/', 'save_location': _SAVE_LOCATION},
+    'optimization': {'lr': 3e-4, 'disc_lr': 3e-4},
+    'lr_scheduler': {'warmup_epoch': 5},
+    'model': {'target_bandwidths': [1.5, 3., 6., 12., 24.], 'sample_rate': 24_000,
+              'channels': 1, 'train_discriminator': 0.5, 'audio_normalize': True,
+              'filters': 32, 'ratios': [8, 5, 4, 2],
+              'disc_win_lengths': [1024, 2048, 512], 'disc_hop_lengths': [256, 512, 128],
+              'disc_n_ffts': [1024, 2048, 512], 'causal': True, 'norm': 'weight_norm',
+              'segment': None, 'name': 'my_encodec', 'n_q': 2},
+    'distributed': {'data_parallel': False, 'world_size': 1},
+    'balancer': {'weights': {'l_t': 0.1, 'l_f': 1, 'l_g': 3, 'l_feat': 3}},
+    'wandb': {'enabled': False},
+    'tpu': {'compute_dtype': 'float32', 'disc_pallas_v2': True, 'disc_im2col': False,
+            'async_checkpoint': True},
+}
+
+_RESUME = './checkpoints_mono_nq2/bs16_cut24000_length27600_epoch74'
+DEFAULTS_MONO_NQ2_RESUME: Dict[str, Any] = copy.deepcopy(DEFAULTS_MONO_NQ2)
+DEFAULTS_MONO_NQ2_RESUME['checkpoint'].update(
+    resume=True, checkpoint_path=f'{_RESUME}_lr0.0003.ckpt',
+    disc_checkpoint_path=f'{_RESUME}_disc_lr0.0003.ckpt')
+
 CONFIGS: Dict[str, Dict[str, Any]] = {'config': DEFAULTS,
-                                      'config_48k_stereo': DEFAULTS_48K_STEREO}
+                                      'config_48k_stereo': DEFAULTS_48K_STEREO,
+                                      'config_mono_nq2': DEFAULTS_MONO_NQ2,
+                                      'config_mono_nq2_resume': DEFAULTS_MONO_NQ2_RESUME}
 
 
 class Config:

@@ -36,11 +36,24 @@
 // Numerics, 3xTF32: every operand is split into a TF32 high part and a TF32
 // low part with round-to-nearest (hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v -
 // hi), so hi + lo keeps ~22 bits of v), and each term is a_lo*b_hi + a_hi*b_lo
-// + a_hi*b_hi accumulated in f32 (a_lo*b_lo, below f32's rounding, is left
-// out). The result holds the plain f32 conv to ~1e-6 of max|y|: this is not
-// the single-pass TF32 that the port keeps off in cuDNN and cuBLAS. The
-// weights are split once a call (pack_weight_kernel below); the input is
-// split in registers.
+// + a_hi*b_hi in f32 (a_lo*b_lo, below f32's rounding, is left out). The
+// tensor cores add an mma's products to its accumulator without rounding to
+// nearest: the bits below the largest term's f32 precision are dropped, a
+// bias toward zero. Added to the running sum of a whole output, that bias
+// grows with it, by the same sign at every step (up to 7.4e-6 of the output
+// by relative norm at the discriminator's 864-term sums, against cuDNN's
+// 6e-7), and a training step's gradients amplify a bias that shrinks every
+// output alike far more than they amplify roundoff: at one trained state of
+// the mono-nq2 config the discriminator's gradients came 1.4e-3 from
+// float64's by relative norm, against cuDNN's 1.2e-4. So each k-step's three
+// products are summed from zero (the dropped bits then scale with that
+// k-step's own terms, whose signs vary) and added to the running sum by an
+// f32 add that rounds to nearest: the outputs then sit 4e-8 to 2.4e-7 from
+// float64's by relative norm, and those gradients 1.7e-5, for 10 % more time
+// (scripts/probe_torch_disc_conv_accuracy.py on an NVIDIA H100 80GB HBM3,
+// 700 W). This is not the single-pass TF32 that the port keeps off in cuDNN
+// and cuBLAS. The weights are split once a call (pack_weight_kernel below);
+// the input is split in registers.
 //
 // Design: an implicit GEMM with warp-level mma.sync.m16n8k8 (TF32 in, f32
 // accumulators). M = output positions of one (b, phase), N = output channels,
@@ -286,9 +299,15 @@ disc_conv_kernel(const float* __restrict__ in, const float* __restrict__ wk,
                     }
 #pragma unroll
                     for (int n = 0; n < 4; ++n) {
-                        mma_tf32(acc[f][n], al, bh[n][0], bh[n][1]);
-                        mma_tf32(acc[f][n], ah, bl[n][0], bl[n][1]);
-                        mma_tf32(acc[f][n], ah, bh[n][0], bh[n][1]);
+                        // the k-step's three products from zero, then one
+                        // round-to-nearest add into the running sum (see
+                        // "Numerics" above)
+                        float part[4] = {0.f, 0.f, 0.f, 0.f};
+                        mma_tf32(part, al, bh[n][0], bh[n][1]);
+                        mma_tf32(part, ah, bl[n][0], bl[n][1]);
+                        mma_tf32(part, ah, bh[n][0], bh[n][1]);
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) acc[f][n][i] += part[i];
                     }
                 }
             }

@@ -25,7 +25,16 @@
 // split as hi = rna_tf32(v), lo = rna_tf32(v - hi), with rna_tf32 the
 // rounding of cvt.rna.tf32.f32 (to 10 mantissa bits, to nearest, ties away
 // from zero), and each term is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi summed in
-// f32. No single-pass TF32 product.
+// f32. No single-pass TF32 product. As in K4, a k-step's three products are
+// summed from zero (wgmma's scale-d 0 on the first) into a partial sum of
+// their own, which a rounding f32 add puts into the tile's running sum: the
+// tensor cores add products to an accumulator with the bits below the
+// largest term's precision dropped, a bias toward zero, and summed onto the
+// running sum that bias grew with it (outputs 2.2e-6 to 5.9e-6 from float64
+// by relative norm at the 48 kHz call's 9 convs, every one shrunk; summed
+// from zero 7.7e-8 to 2.0e-7, under cuDNN's 1.8e-7 to 5.0e-7, for 35 % more
+// time; scripts/probe_torch_disc_conv_accuracy.py on an NVIDIA H100 80GB
+// HBM3, 700 W).
 //
 // Design:
 // - M = output positions, N = all 32 output channels, K = 864 in chunks of
@@ -46,9 +55,13 @@
 //   registers, gathered from the staged window, and B (k x 32 channels) from
 //   shared memory, K-major without swizzle, three wgmmas a tile and k-step.
 //   Each tile's three are one commit group, and the groups alternate between
-//   two sets of A registers: before a set is written, wgmma.wait_group 1
-//   retires the group before last, which read it, so a warpgroup gathers and
-//   splits the next tile's operand while its last group runs.
+//   two sets of A registers and two partial sums: before a set is written,
+//   wgmma.wait_group 1 retires the group before last, which read it, and
+//   that group's partial sum goes into its tile's running sum, so a
+//   warpgroup gathers and splits the next tile's operand while its last
+//   group runs. The two partial sums cost spills at four tiles (~600 bytes
+//   a thread at two blocks an SM); one block an SM, without spills, was
+//   slower.
 // - A is split in registers right after its gather, by integer operations
 //   that give cvt.rna.tf32's bits (add half of the 13 dropped bits, then
 //   clear them), not by cvt, whose issue rate is a quarter of the integer
@@ -184,8 +197,10 @@ __device__ __forceinline__ uint64_t b_desc(const float* p) {
            | ((uint64_t)(B_NSTRIDE >> 4) << 32);
 }
 
-// d[64 x 32] += a[64 x 8] * b[8 x 32], TF32 operands, f32 accumulators; a from
-// registers (lane 4g + q of warp w: rows 16w + g and 16w + g + 8, k q and q + 4)
+// d[64 x 32] = SCALE_D * d + a[64 x 8] * b[8 x 32], TF32 operands, f32
+// accumulators (SCALE_D 0 or 1); a from registers (lane 4g + q of warp w:
+// rows 16w + g and 16w + g + 8, k q and q + 4)
+template <int SCALE_D>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4],
                                            uint64_t desc) {
     asm volatile(
@@ -199,7 +214,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(SCALE_D));
 }
 
 // staged column of window column j: even columns first, then odd
@@ -268,6 +283,7 @@ disc_im2col_kernel(const float* __restrict__ x, const float* __restrict__ wk,
     };
 
     float acc[NT][16];
+    float part[2][16] = {};        // two groups' partial sums in flight
     uint32_t ah[2][4], al[2][4];   // two groups' A operand in flight, hi and lo
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -307,23 +323,35 @@ disc_im2col_kernel(const float* __restrict__ x, const float* __restrict__ wk,
                     v[3] = xf[off1 + RS];
                 }
                 // groups alternate between the two register sets; the group
-                // before last, which read this one, is done
+                // before last, which read this one, is done: its partial sum
+                // goes into its tile's running sum
+                const int n = s * NT + j;                   // constant once unrolled
                 wgmma_wait<1>();
-                uint32_t (&h)[4] = ah[(s * NT + j) & 1];
-                uint32_t (&l)[4] = al[(s * NT + j) & 1];
+                if (n >= 2) {
+#pragma unroll
+                    for (int i = 0; i < 16; ++i) acc[(n - 2) % NT][i] += part[n & 1][i];
+                }
+                uint32_t (&h)[4] = ah[n & 1];
+                uint32_t (&l)[4] = al[n & 1];
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     h[i] = rna_tf32(v[i]);
                     l[i] = rna_tf32(v[i] - __uint_as_float(h[i]));
                 }
                 wgmma_fence();
-                wgmma_tf32(acc[j], l, d_hi);
-                wgmma_tf32(acc[j], h, d_lo);
-                wgmma_tf32(acc[j], h, d_hi);
+                wgmma_tf32<0>(part[n & 1], l, d_hi);
+                wgmma_tf32<1>(part[n & 1], h, d_lo);
+                wgmma_tf32<1>(part[n & 1], h, d_hi);
                 wgmma_commit();
             }
         }
         wgmma_wait<0>();
+        constexpr int last = NSTEP * NT - 1;   // the chunk's last two groups
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            acc[(last - 1) % NT][i] += part[(last - 1) & 1][i];
+            acc[last % NT][i] += part[last & 1][i];
+        }
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j)

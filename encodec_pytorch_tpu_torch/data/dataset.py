@@ -2,7 +2,7 @@
 
 Port of ``encodec_pytorch_tpu/data/dataset.py``: the CSV is read with the
 ``csv`` module (the JAX package's ``data`` package pulls in pandas), wavs
-with scipy (``utils.read_wav``). Crops are keyed by (seed, epoch, index)
+with scipy (``audio_io.read_wav``). Crops are keyed by (seed, epoch, index)
 exactly as the JAX package keys them (``_crop_rng``), and the shuffle is
 ``random.Random(seed + epoch)``, so both packages cut the same crops in the
 same order. Batches are ``[B, C, tensor_cut]`` float32 numpy arrays
@@ -16,7 +16,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from .utils import convert_audio, read_wav
+from .audio_io import read_wav, resample
 
 logger = logging.getLogger(__name__)
 
@@ -61,7 +61,7 @@ class CustomAudioDataset:
         if self.channels == 1 and wav.shape[0] > 1:
             wav = wav.mean(axis=0, keepdims=True)
         if sr != self.sample_rate:
-            wav = convert_audio(wav, sr, self.sample_rate, wav.shape[0])
+            wav = resample(wav, sr, self.sample_rate)
         if wav.shape[0] == 1 and self.channels > 1:
             wav = np.repeat(wav, self.channels, axis=0)
         return wav.astype(np.float32)

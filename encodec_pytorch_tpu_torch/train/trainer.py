@@ -3,18 +3,22 @@ built from the config; ``run`` tests, then trains ``common.max_epoch``
 epochs, testing every ``common.test_interval`` and saving every
 ``common.save_interval`` epochs.
 
-Port of ``encodec_pytorch_tpu/train/trainer.py`` for one device, for both
-default sets (``config``: 24 kHz mono; ``config_48k_stereo``: 48 kHz stereo,
-segmented, normalized, ``time_group_norm``). ``distributed.data_parallel``
-over one card is the identity: the batch stays whole on the trainer's
-device. The step runs in ``tpu.compute_dtype`` (``bfloat16`` in ``config``,
-as the JAX yaml has it: bf16 activations, f32 master weights, f32 in the
-LSTM, the quantizer and the losses; ``float32`` in ``config_48k_stereo``),
-accumulates gradients over ``tpu.grad_accum_steps`` microbatches, and with
-``tpu.skip_nonfinite_steps`` drops a step whose losses or updated state are
-not finite (logged as the JAX trainer logs it). Not in this port yet (each
-raises or is left out): tensorboard and wandb, and data parallelism over
-more than one card.
+Port of ``encodec_pytorch_tpu/train/trainer.py`` for one device, for every
+default set (``config``: 24 kHz mono; ``config_48k_stereo``: 48 kHz stereo,
+segmented, normalized, ``time_group_norm``; ``config_mono_nq2``: 24 kHz mono
+at n_q 2 on 1 s windows of the multi-channel scene dataset, selected by
+``datasets.dataset``). ``distributed.data_parallel`` over one card is the
+identity: the batch stays whole on the trainer's device. The step runs in
+``tpu.compute_dtype`` (``bfloat16`` in ``config``, as the JAX yaml has it:
+bf16 activations, f32 master weights, f32 in the LSTM, the quantizer and the
+losses; ``float32`` in the other sets), accumulates gradients over
+``tpu.grad_accum_steps`` microbatches, and with ``tpu.skip_nonfinite_steps``
+drops a step whose losses or updated state are not finite (logged as the
+JAX trainer logs it). Losses go to tensorboard (``tensorboardX``, under
+``{save_folder}/runs``, the JAX trainer's scalar names) where it imports, and
+otherwise the run logs the JAX trainer's warning and goes on; wandb is never
+written (``wandb.enabled`` logs a warning). Data parallelism over more than
+one card raises: it is not ported yet.
 
 State (``checkpoint.py``): one file holds the generator (in the reference
 trainer's layout, ``model_state_dict`` with the quantizer under
@@ -38,6 +42,7 @@ expiry draws from a generator on the device (seed + 2).
 """
 
 import logging
+import os
 import signal
 import time
 from pathlib import Path
@@ -46,7 +51,7 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from ..config import Config, parse_probability, parse_segment
-from ..data import CustomAudioDataset, DataLoader
+from ..data import CustomAudioDataset, DataLoader, MultiChannelAudioDataset
 from ..models.model import EncodecModel, from_trainer_layout, to_trainer_layout
 from ..models.msstftd import MultiScaleSTFTDiscriminator
 from ..ops import conv
@@ -60,15 +65,35 @@ logger = logging.getLogger('encodec_pytorch_tpu_torch')
 
 Device = Union[str, torch.device]
 
+# the JAX trainer's tensorboard scalars of a training log line, beside Loss_G,
+# Loss_W and Loss_Disc (encodec_pytorch_tpu/train/trainer.py:405-420)
+TRAIN_SCALARS = ('skipped_nonfinite', 'l_t', 'l_f', 'l_g', 'l_feat', 'codebook_entropy',
+                 'codebook_dead_frac')
+
+
+def open_tensorboard(save_folder: str):
+    """A ``tensorboardX`` writer under ``{save_folder}/runs``, or None, with
+    the JAX trainer's warning, where it cannot be opened."""
+    try:
+        from tensorboardX import SummaryWriter
+        writer = SummaryWriter(log_dir=os.path.join(save_folder, 'runs'))
+    except (ImportError, OSError) as exc:
+        logger.warning('tensorboard unavailable: %s', exc)
+        return None
+    logger.info('Saving tensorboard logs to %s', Path(writer.logdir).resolve())
+    return writer
+
+
+DATASETS = {'csv': CustomAudioDataset, 'multi_channel': MultiChannelAudioDataset}
+
 
 def check_supported(config: Config) -> None:
     """Raise on a config option that the port does not run yet."""
     compute_dtype(config)
     dataset = str(config.datasets.get('dataset', 'csv'))
-    if dataset != 'csv':
+    if dataset not in DATASETS:
         raise NotImplementedError(
-            f"datasets.dataset={dataset} is not ported yet (ROADMAP Queue 1, item 2: the "
-            f"multi-channel dataset); only 'csv' runs")
+            f"datasets.dataset={dataset} is not ported yet; the port runs {sorted(DATASETS)}")
     dist = config.get('distributed', Config({}))
     if bool(dist.get('data_parallel', False)) and int(dist.get('world_size', 0) or 0) > 1:
         raise NotImplementedError('data parallelism over more than one card is not ported yet')
@@ -77,6 +102,13 @@ def check_supported(config: Config) -> None:
 def compute_dtype(config: Config) -> torch.dtype:
     """``tpu.compute_dtype`` (float32 when absent) as a torch dtype."""
     return conv.compute_dtype(str(config.get('tpu', Config({})).get('compute_dtype', 'float32')))
+
+
+def build_dataset(config: Config, mode: str):
+    """The ``datasets.dataset`` set (``csv`` when absent) for ``mode``
+    ('train' or 'test'), its draws keyed by ``common.seed``."""
+    kind = DATASETS[str(config.datasets.get('dataset', 'csv'))]
+    return kind(config, mode=mode, seed=config.common.seed)
 
 
 def build_model_from_config(config: Config, device: Device = 'cuda',
@@ -146,11 +178,15 @@ class Trainer:
         self.device_gen = torch.Generator(device=self.device).manual_seed(seed + 2)
         self.train_step = train_step
         self.writer = CheckpointWriter()
+        self.tb = None      # the tensorboard writer, open inside run()
+        self.data_ms: List[float] = []      # the last epoch's loader ms a batch
+        if bool(config.get('wandb', Config({})).get('enabled', False)):
+            logger.warning('wandb unavailable: the port does not log to wandb')
 
         self.tensor_cut = int(config.datasets.tensor_cut)
         batch_size = int(config.datasets.batch_size)
-        self.trainset = CustomAudioDataset(config, seed=config.common.seed)
-        self.testset = CustomAudioDataset(config, seed=config.common.seed, mode='test')
+        self.trainset = build_dataset(config, 'train')
+        self.testset = build_dataset(config, 'test')
         self.trainloader = DataLoader(self.trainset, batch_size, fixed_length=self.tensor_cut,
                                       seed=seed)
         self.testloader = DataLoader(self.testset, batch_size, fixed_length=self.tensor_cut,
@@ -259,7 +295,8 @@ class Trainer:
         """One pass over the training set (less the batches a mid-epoch
         resume skips). Returns the epoch's mean metrics, ``steps`` and
         ``step_ms`` (host clock around each step, which ends in a device
-        synchronize)."""
+        synchronize); keeps in ``data_ms`` the host clock around the loader's
+        making of each batch (reads, resampling, crops)."""
         cfg = self.config
         self.trainloader.set_epoch(epoch)
         n = len(self.trainloader)
@@ -271,11 +308,16 @@ class Trainer:
                         epoch, skip)
         acc: Dict[str, torch.Tensor] = {}
         step_ms: List[float] = []
+        self.data_ms = []
         since_log = 0
-        for idx, batch_np in enumerate(self.trainloader):
+        batches = iter(self.trainloader)
+        for idx in range(n):
+            t_data = time.perf_counter()
+            batch_np = next(batches)
             if idx < skip:
                 continue
             t0 = time.perf_counter()
+            self.data_ms.append(1000 * (t0 - t_data))
             batch = torch.from_numpy(batch_np).to(self.device)
             bw_index = int(torch.randint(len(self.n_q_table), (1,), generator=self.host_gen))
             coin = float(torch.rand((), generator=self.host_gen)) < self.disc_prob
@@ -302,6 +344,14 @@ class Trainer:
                                    '(tpu.skip_nonfinite_steps guard)',
                                    int(round(avg['skipped_nonfinite'] * len(step_ms))),
                                    len(step_ms))
+                if self.tb is not None:
+                    gstep = (epoch - 1) * n + idx
+                    self.tb.add_scalar('Train/Loss_G', avg['loss_g'], gstep)
+                    for k in TRAIN_SCALARS:
+                        if k in avg:
+                            self.tb.add_scalar(f'Train/{k}', avg[k], gstep)
+                    self.tb.add_scalar('Train/Loss_W', avg['loss_w'], gstep)
+                    self.tb.add_scalar('Train/Loss_Disc', avg['loss_disc'], gstep)
                 since_log = 0
             self._preempt_point(epoch - 1)
         out: Dict[str, Any] = {k: float(v) / max(len(step_ms), 1) for k, v in acc.items()}
@@ -319,9 +369,9 @@ class Trainer:
         cfg = self.config
         n = len(self.testloader)
         if n == 0:
-            logger.warning('the test set (%s) holds %d clips, fewer than one batch of %d: '
-                           'no test batch at epoch %d', cfg.datasets.test_csv_path,
-                           len(self.testset), self.testloader.batch_size, epoch)
+            logger.warning('the test set holds %d clips, fewer than one batch of %d: '
+                           'no test batch at epoch %d', len(self.testset),
+                           self.testloader.batch_size, epoch)
             return None
         sample_rate = int(cfg.model.sample_rate)
         self.model.eval()
@@ -339,6 +389,10 @@ class Trainer:
             logger.info('| TEST | epoch: %d | loss_g: %.4f | loss_disc: %.4f', epoch,
                         sum(v for k, v in avg.items() if k not in ('loss_disc', 'ms')),
                         avg['loss_disc'])
+            if self.tb is not None:
+                for k, v in avg.items():
+                    if k != 'ms':
+                        self.tb.add_scalar(f'Test/{k}', v, epoch)
             wav, sr = self.testset.get()
             recon = self.model(torch.from_numpy(wav[None]).to(self.device))[0].cpu().numpy()
         finally:
@@ -364,6 +418,7 @@ class Trainer:
             self._signum = signum
 
         previous = signal.signal(signal.SIGTERM, on_term)
+        self.tb = open_tensorboard(str(cfg.checkpoint.save_folder))
         try:
             self.test(0)
             for epoch in range(self.resume_epoch + 1, int(cfg.common.max_epoch) + 1):
@@ -376,4 +431,7 @@ class Trainer:
         finally:
             signal.signal(signal.SIGTERM, previous)
             self.writer.wait_pending()
+            if self.tb is not None:
+                self.tb.close()
+                self.tb = None
         return self.history

@@ -1,20 +1,19 @@
-"""Overlap-add of decoded segments, and host helpers: wav files (mono or
-stereo), channel and rate conversion, checkpoint checksum.
+"""Overlap-add of decoded segments, and host helpers: channel and rate
+conversion, saving audio, checkpoint checksum.
 
-Port of ``encodec_pytorch_tpu/utils.py`` and of the wav reader/writer of
-``encodec_pytorch_tpu/data/audio_io.py`` (which this package cannot import:
-its package pulls in pandas). WAV IO is scipy's.
+Port of ``encodec_pytorch_tpu/utils.py``. The wav reader, writer and
+resampler live in ``data/audio_io.py``; ``read_wav`` and ``write_wav`` are
+re-exported here for the CLIs and scripts that take them from ``utils``.
 """
 
-import os
-from fractions import Fraction
 from hashlib import sha256
 from pathlib import Path
 from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from scipy.io import wavfile
+
+from .data.audio_io import read_wav, resample, write_wav  # noqa: F401  (re-exported)
 
 PathLike = Union[str, Path]
 
@@ -43,34 +42,6 @@ def linear_overlap_add(frames: Sequence[torch.Tensor], stride: int) -> torch.Ten
     return out / sum_weight
 
 
-def read_wav(path: PathLike) -> Tuple[np.ndarray, int]:
-    """Read a wav file → (wav ``[C, T]`` float32 in [-1, 1], sample_rate)."""
-    sr, data = wavfile.read(str(path))
-    if data.dtype == np.int16:
-        data = data / 32768.0
-    elif data.dtype == np.int32:
-        data = data / 2147483648.0
-    elif data.dtype == np.uint8:
-        data = (data.astype(np.float32) - 128.0) / 128.0
-    elif data.dtype not in (np.float32, np.float64):
-        raise ValueError(f"unsupported wav dtype {data.dtype}")
-    data = np.asarray(data, np.float32)
-    data = data[None, :] if data.ndim == 1 else data.T   # scipy gives [T, C]
-    return np.ascontiguousarray(data), sr
-
-
-def write_wav(path: PathLike, wav: np.ndarray, sample_rate: int) -> None:
-    """Write ``[C, T]`` float in [-1, 1] as 16-bit PCM."""
-    wav = np.asarray(wav, np.float32)
-    if wav.ndim == 1:
-        wav = wav[None, :]
-    pcm = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16).T   # [T, C]
-    if pcm.shape[1] == 1:
-        pcm = pcm[:, 0]
-    os.makedirs(os.path.dirname(os.path.abspath(str(path))) or '.', exist_ok=True)
-    wavfile.write(str(path), sample_rate, pcm)
-
-
 def convert_audio(wav: np.ndarray, sr: int, target_sr: int,
                   target_channels: int) -> np.ndarray:
     """Channel up/down-mix, then polyphase resample. ``wav``: ``[..., C, T]``."""
@@ -83,12 +54,7 @@ def convert_audio(wav: np.ndarray, sr: int, target_sr: int,
         wav = np.broadcast_to(wav, wav.shape[:-2] + (2, wav.shape[-1])).copy()
     elif channels != target_channels:
         raise RuntimeError(f"Impossible to convert from {channels} to {target_channels}")
-    if sr != target_sr:
-        from scipy.signal import resample_poly   # ~2 s to import; only resampling needs it
-        frac = Fraction(target_sr, sr)
-        wav = resample_poly(np.asarray(wav, np.float64), frac.numerator,
-                            frac.denominator, axis=-1)
-    return np.asarray(wav, np.float32)
+    return resample(wav, sr, target_sr)
 
 
 def save_audio(wav: np.ndarray, path: PathLike, sample_rate: int,

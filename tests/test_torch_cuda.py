@@ -601,6 +601,33 @@ def test_disc_conv_kernel_matches_plain(cuda, B, Cin, Cout, T, F, k, stride, dil
     assert torch.equal(dx, dck.disc_conv_input_grad(g, w, x.shape, stride, dilation, padding))
 
 
+@pytest.mark.parametrize('T,F,k,stride,dilation,padding', [
+    (64, 257, (3, 9), (1, 2), (1, 1), (1, 4)),
+    (64, 129, (3, 3), (1, 1), (2, 1), (2, 1))])
+def test_disc_conv_kernel_holds_float64_without_a_bias(cuda, T, F, k, stride, dilation,
+                                                       padding):
+    """K4 against the float64 conv at a discriminator shape (32 channels, the
+    input a leaky ReLU's, as the discriminator feeds it): within 1e-6 by
+    relative norm, forward and input gradient, and no drift of the outputs
+    toward zero. A k-step's products summed onto the running sum inside the
+    tensor core drop bits toward zero; that bias put the outputs ~5e-6 from
+    float64 (cuDNN: under 5e-7) before each k-step was summed from zero and
+    added by a rounding f32 add."""
+    gen = torch.Generator(device=cuda).manual_seed(T + F)
+    x = torch.nn.functional.leaky_relu(torch.randn(4, 32, T, F, generator=gen, device=cuda), 0.2)
+    w = torch.randn(32, 32, *k, generator=gen, device=cuda) / (32 * k[0] * k[1]) ** 0.5
+    b = torch.randn(32, generator=gen, device=cuda) * 0.1
+    kw = dict(stride=stride, padding=padding, dilation=dilation)
+    y64 = torch.nn.functional.conv2d(x.double(), w.double(), b.double(), **kw)
+    g = torch.randn(y64.shape, generator=gen, device=cuda)
+    dx64 = torch.nn.grad.conv2d_input(x.shape, w.double(), g.double(), **kw)
+    for got, ref in ((dck.disc_conv_forward(x, w, b, stride, dilation, padding), y64),
+                     (dck.disc_conv_input_grad(g, w, x.shape, stride, dilation, padding), dx64)):
+        d = got.double() - ref
+        assert float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(ref)) <= 1e-6
+        assert abs(float((d * ref.sign()).mean() / ref.abs().mean())) <= 1e-7
+
+
 @pytest.mark.parametrize('Cout,Cin,k,sf', [(32, 32, (3, 9), 2), (32, 32, (3, 3), 1),
                                             (64, 40, (3, 9), 2), (40, 36, (3, 3), 1)])
 def test_disc_conv_pack_kernel_is_the_plain_packing(cuda, Cout, Cin, k, sf):
@@ -659,6 +686,24 @@ def test_disc_im2col_kernel_matches_plain(cuda, B, T, F, dt):
     ref = torch.nn.functional.conv2d(x, w, b, (1, 2), (dt, 4), (dt, 1))
     assert y.shape == ref.shape and _rel_max(y, ref) <= 1e-5
     assert torch.equal(y, k5.disc_im2col_forward(x, w, b, *geo))
+
+
+@pytest.mark.parametrize('T,F,dt', [(64, 513, 1), (40, 257, 4)])
+def test_disc_im2col_kernel_holds_float64_without_a_bias(cuda, T, F, dt):
+    """K5 against the float64 conv at a discriminator shape (the input a
+    leaky ReLU's): within 1e-6 by relative norm and no drift of the outputs
+    toward zero. Its products summed onto the running sum inside the tensor
+    core put the outputs 2e-6 to 6e-6 from float64, every one shrunk, before
+    each k-step was summed from zero and added by a rounding f32 add."""
+    gen = torch.Generator(device=cuda).manual_seed(T + F + dt)
+    x = torch.nn.functional.leaky_relu(torch.randn(4, 32, T, F, generator=gen, device=cuda), 0.2)
+    w = torch.randn(32, 32, 3, 9, generator=gen, device=cuda) / (32 * 27) ** 0.5
+    b = torch.randn(32, generator=gen, device=cuda) * 0.1
+    ref = torch.nn.functional.conv2d(x.double(), w.double(), b.double(), (1, 2), (dt, 4),
+                                     (dt, 1))
+    d = k5.disc_im2col_forward(x, w, b, (dt, 1), (dt, 4)).double() - ref
+    assert float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(ref)) <= 1e-6
+    assert abs(float((d * ref.sign()).mean() / ref.abs().mean())) <= 1e-7
 
 
 @pytest.mark.parametrize('B', [1, 3])

@@ -19,7 +19,7 @@ step, on the CPU, against the JAX package's ``build_train_step``.
   ``skipped_nonfinite`` 1; a clean batch then trains with 0, bit-equal to the
   same step unguarded.
 - The trainer's config keys reach the step; a `datasets.dataset` other than
-  `csv` raises.
+  `csv` and `multi_channel` raises, and every default set's is accepted.
 """
 
 import copy
@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from encodec_pytorch_tpu_torch.config import load_config
+from encodec_pytorch_tpu_torch.data import CustomAudioDataset, MultiChannelAudioDataset
 from encodec_pytorch_tpu_torch.models.model import EncodecModel
 from encodec_pytorch_tpu_torch.models.msstftd import MultiScaleSTFTDiscriminator
 from encodec_pytorch_tpu_torch.train import trainer as trainer_module
@@ -208,14 +209,26 @@ def test_trainer_config_keys_reach_the_step(tmp_path, monkeypatch):
         trainer_module.Trainer(load_config(base + ['tpu.compute_dtype=float16']), device='cpu')
 
 
-@pytest.mark.parametrize('dataset', ['multi_channel', 'unknown'])
+@pytest.mark.parametrize('dataset', ['unknown'])
 def test_trainer_refuses_a_dataset_it_does_not_run(dataset):
-    """Only the CSV dataset is ported: any other ``datasets.dataset`` raises
-    before a dataset is built, instead of training on the CSV set."""
+    """A ``datasets.dataset`` the port does not have raises before a dataset
+    is built, instead of training on the CSV set."""
     config = load_config([f'datasets.dataset={dataset}'])
-    with pytest.raises(NotImplementedError, match='Queue 1, item 2'):
+    with pytest.raises(NotImplementedError, match="runs \\['csv', 'multi_channel'\\]"):
         trainer_module.check_supported(config)
     with pytest.raises(NotImplementedError, match='not ported yet'):
         trainer_module.Trainer(config, device='cpu')
     trainer_module.check_supported(load_config(['datasets.dataset=csv']))
     trainer_module.check_supported(load_config())
+
+
+@pytest.mark.parametrize('name', ['config', 'config_48k_stereo', 'config_mono_nq2',
+                                  'config_mono_nq2_resume'])
+def test_trainer_accepts_the_datasets_of_every_set(name):
+    """``check_supported`` accepts every default set (the mono-nq2 sets' dataset
+    is ``multi_channel``), and maps it to the dataset class ``build_dataset`` builds."""
+    config = load_config(name=name)
+    trainer_module.check_supported(config)
+    trainer_module.check_supported(load_config(['datasets.dataset=multi_channel']))
+    assert trainer_module.DATASETS[config.datasets.dataset] is (
+        MultiChannelAudioDataset if name.startswith('config_mono_nq2') else CustomAudioDataset)

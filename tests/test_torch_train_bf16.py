@@ -45,12 +45,17 @@ torch.set_num_threads(1)
 BF16 = torch.bfloat16
 
 
-def jax_run(dtype, steps: int, batches, key=jax.random.PRNGKey(2), accum: int = 1):
+def jax_run(dtype, steps: int, batches, key=jax.random.PRNGKey(2), accum: int = 1,
+            disc_allowed=None, tiny=TINY):
     """``steps`` jitted JAX steps in ``dtype`` from the port's seeded init
     (tests/test_torch_train.py's fixture, with a dtype and several steps):
     the states, the metrics, and the random choices of each step (n_q, coin,
-    the RVQ draws for a microbatch of ``len(batch) / accum`` rows)."""
-    jm = _CapturedModel._get_model(segment=None, dtype=dtype, **TINY)
+    the RVQ draws for a microbatch of ``len(batch) / accum`` rows).
+    ``disc_allowed`` (one bool a step, all True by default) is the step's
+    ``disc_allowed`` argument: False leaves the discriminator as it was.
+    ``tiny`` holds the generator's arguments (tests/test_torch_train.py's
+    ``TINY`` by default)."""
+    jm = _CapturedModel._get_model(segment=None, dtype=dtype, **tiny)
     jd = JaxDisc(fpack=0, dtype=dtype, **DISC)
     sched = jax_schedule(3e-4, max_iter=100, eta_ratio=0.1, warmup_iter=0, warmup_ratio=1e-4)
     jb = _MonitoredBalancer(WEIGHTS)
@@ -59,7 +64,7 @@ def jax_run(dtype, steps: int, batches, key=jax.random.PRNGKey(2), accum: int = 
     gen = torch.Generator().manual_seed(8)
     numpy_sd = lambda m: {k: v.numpy() for k, v in m.state_dict().items()}
     variables = jax.device_get(variables_from_torch_state_dict(
-        jm, numpy_sd(EncodecModel._get_model(generator=gen, **TINY))))
+        jm, numpy_sd(EncodecModel._get_model(generator=gen, **tiny))))
     params_d = jax.device_get(msstftd_params_from_torch(numpy_sd(
         MultiScaleSTFTDiscriminator(generator=gen, **DISC))))
     adam0 = lambda p: optax.ScaleByAdamState(np.zeros((), np.int32), *(
@@ -77,23 +82,25 @@ def jax_run(dtype, steps: int, batches, key=jax.random.PRNGKey(2), accum: int = 
         return (jax.random.randint(k_bw, (), 0, 2), jax.random.uniform(rng_coin) < 1.0,
                 jax.random.fold_in(k_q, 0))
 
+    allowed = [True] * steps if disc_allowed is None else list(disc_allowed)
     states, metrics, picks = [jax.device_get(state)], [], []
     for i in range(steps):
-        new, m = step(states[-1], jnp.asarray(batches[i]), key, jnp.asarray(True))
+        new, m = step(states[-1], jnp.asarray(batches[i]), key, jnp.asarray(allowed[i]))
         states.append(jax.device_get(new))
         metrics.append(jax.device_get(m))
         bw_index, coin, k_q = choices(key, i)
         rows = len(batches[i]) // accum * batches[i].shape[-1] // 8
         picks.append(dict(n_q=int(jm.n_q_for_bandwidth_index()[int(bw_index)]),
-                          coin=bool(coin), draws=jax_stage_draws(k_q, TINY['n_q'], rows, 1024),
+                          coin=bool(coin) and allowed[i],
+                          draws=jax_stage_draws(k_q, tiny['n_q'], rows, 1024),
                           lr=float(sched(i))))
     return states, metrics, picks
 
 
-def port_modules(state, dtype):
+def port_modules(state, dtype, tiny=TINY):
     """The port's modules in ``dtype`` in the state of a JAX ``TrainState``."""
     sds = convert.train_state_from_jax(state, DISC['win_lengths'])
-    model = EncodecModel._get_model(dtype=dtype, **TINY)
+    model = EncodecModel._get_model(dtype=dtype, **tiny)
     model.load_state_dict(sds['model'], strict=True)
     disc = MultiScaleSTFTDiscriminator(dtype=dtype, **DISC)
     disc.load_state_dict(sds['disc'], strict=True)
