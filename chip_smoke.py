@@ -5,8 +5,8 @@ bf16 with K4 and K5 in their bf16 forms), the trainer's state (checkpoints,
 resume after SIGTERM, the test loop, trained-checkpoint loading, weight-norm
 folding), the mono-nq2 training mode on the multi-channel scene dataset with
 its evaluation (``cal_metrics``), the 48 kHz stereo family (codec,
-CodecServer, training step), gradient accumulation and the non-finite step
-guard once on one NVIDIA GPU.
+CodecServer, training step), gradient accumulation, the non-finite step
+guard and data-parallel training once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--before DIR]
 
@@ -256,6 +256,25 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     copy-and-select alone by CUDA events and its copies' size; guarded
     against unguarded steps; 3 guarded steps under
     ``torch.cuda.set_sync_debug_mode('error')`` (no host sync).
+20. Data parallelism (``parallel/mesh.py``). (a) Two ranks on the card over
+    gloo (NCCL refuses two ranks on one card; gloo takes CUDA tensors and
+    stages each all-reduce through the host), each a subprocess of this
+    script (``--dp-rank``), each holding 6 rows of a seeded global batch of
+    12 x 72000 of the shipped ``config`` at full width, 3 steps (the k-means
+    init of all 32 stages and the dead-code expiry, then two discriminator
+    updates) with deterministic algorithms, in the config's bf16 and in
+    f32; then one process on the 12 rows, the same steps. The ranks' states
+    bit-equal (``assert_replicated`` in each rank, then every tensor); the
+    2-rank state against the one process's by group (parameters and
+    buffers, Adam, balancer, codebook buffers, stage 0's codebook) within
+    ``DP_REL``; codes expired; K4 (bf16, f32) and K2 launched; each rank's ms
+    a step and ms in collectives (CUDA events on the step's stream) and the
+    one process's. Kernels against plain at a rank's 6 rows (phase 9's bf16
+    bars). (b) ``train_cli`` as one rank under torchrun's environment
+    (``RANK`` 0, ``WORLD_SIZE`` 1, ``MASTER_ADDR``/``MASTER_PORT`` on
+    127.0.0.1) over NCCL for 2 steps, with deterministic algorithms: its
+    whole state bit-equal to the same run without a process group (a
+    one-rank all-reduce is the identity); ms a step, ms in NCCL collectives.
 
 With ``--before DIR`` (another checkout of the port, e.g. the parent commit
 unpacked with ``git archive``), phases 2, 5, 12 and 16 also run that
@@ -270,7 +289,8 @@ the script started), then a JSON line with each kernel's numbers (launches:
 the 24 and 48 kHz codec CLIs', servers' and LM codec runs' and phases 10's
 and 10b's for K1, K2 and K3; both training paths' and phases 10's and 10b's
 for K4; the 48 kHz training
-steps' for K5; the on-device LM route's at 24 and 48 kHz for K6, whose ``ms`` is
+steps' for K5 (and phase 20's data-parallel path's for K1, K2, K3 and K4);
+the on-device LM route's at 24 and 48 kHz for K6, whose ``ms`` is
 a decode step's; phase 6a's int8 serving path's for the int8 entries of K2 and
 K3, whose ``max_abs_err_vs_f32`` is against the f32 kernels; K1's and K2's entries list
 every timed shape under ``shapes``, K3's its 8 offline and 4 tick shapes,
@@ -1360,17 +1380,17 @@ TRAIN_SECONDS = 3
 TRAIN_DATA = {'config': (SR, 1, TRAIN_SECONDS, 100), 'config_48k_stereo': (SR48, 2, 1.25, 500)}
 
 
-def train_overrides(tmp: Path, seed: int, config: str = 'config') -> list:
-    """Three batches of synthetic clips in a CSV (``config``: 36 mono clips of
-    3 s at 24 kHz; ``config_48k_stereo``: 96 stereo clips of 1.25 s at 48 kHz,
-    cropped to 1 s), one batch more as the test set, and the overrides of the
+def train_overrides(tmp: Path, seed: int, config: str = 'config', batches: int = 3) -> list:
+    """``batches`` batches of synthetic clips in a CSV (``config``, 3: 36 mono
+    clips of 3 s at 24 kHz; ``config_48k_stereo``: 96 stereo clips of 1.25 s
+    at 48 kHz, cropped to 1 s), one batch more as the test set, and the overrides of the
     port's default set ``config`` (at its full widths, in its own compute
     dtype) that train one epoch on them (after the test loop the trainer runs
     first), saving under ``tmp``."""
     from encodec_pytorch_tpu_torch.config import load_config
     from encodec_pytorch_tpu_torch.utils import write_wav
     sr, channels, seconds, offset = TRAIN_DATA[config]
-    n_clips = 3 * int(load_config(name=config).datasets.batch_size)
+    n_clips = batches * int(load_config(name=config).datasets.batch_size)
     paths = []
     for i in range(n_clips):
         paths.append(tmp / f'train_{i}.wav')
@@ -3309,6 +3329,302 @@ def accum_guard_phase(torch, seed) -> None:
         f'{float(metrics["skipped_nonfinite"])}')
 
 
+# data parallelism (phase 20): (a) 2 ranks on the one card over gloo, the
+# shipped config at full width (12 rows: 6 a rank) in its bf16 and in f32,
+# these steps (n_q, discriminator update): the first runs the k-means init of
+# all 32 stages and the dead-code expiry; (b) train_cli as one rank under
+# torchrun's environment over NCCL
+DP_RANKS = 2
+DP_STEPS = ((32, False), (8, True), (16, True))
+DP_DTYPES = ('bfloat16', 'float32')
+# the 2 ranks against one process on the global batch, relative norm of the
+# difference by group of the state and of stage 0's codebook: about 2.3-6x
+# the readings, which repeat bit for bit under deterministic algorithms
+# (NVIDIA H100 80GB HBM3, 700 W). f32: parameters 1.01e-5, Adam 2.56e-5,
+# balancer 9.85e-5, codebook buffers 7.34e-3 (from stages 15-18, which hold
+# few codes: their codebooks' norms are near 0), stage 0 1.68e-5. bf16:
+# cuDNN's bf16 convs at 6 rows round otherwise than at 12, and the k-means
+# (50 iterations, 2700 rows, 1024 bins) turns that into other codes:
+# parameters 4.40e-3, Adam 8.78e-2, balancer 0.128, stage 0 1.50e-2, the
+# codebook buffers 0.789 (cluster sizes and sums of flipped codes; no bound)
+DP_REL = {'bfloat16': {'parameters': 1e-2, 'adam': 0.2, 'balancer': 0.3, 'stage 0': 5e-2},
+          'float32': {'parameters': 3e-5, 'adam': 1e-4, 'balancer': 3e-4, 'codebooks': 2e-2,
+                      'stage 0': 1e-4}}
+DP_TIMEOUT = 600
+DP_STATE_GROUPS = ('parameters', 'adam', 'codebooks', 'balancer')
+
+
+def _dp_group(name: str) -> str:
+    if name.startswith('model/quantizer.'):
+        return 'codebooks'
+    if name.startswith('opt_'):
+        return 'adam'
+    return 'balancer' if name.startswith('balancer/') else 'parameters'
+
+
+def _dp_state(model, disc, opts, balancer) -> dict:
+    """The training state by name, on the host: parameters and buffers,
+    Adam's moments and step counts, the balancer's EMA."""
+    out = {f'model/{k}': v for k, v in model.state_dict().items()}
+    out.update({f'disc/{k}': v for k, v in disc.state_dict().items()})
+    for name, opt, module in (('opt_g', opts[0], model), ('opt_d', opts[1], disc)):
+        for pname, p in module.named_parameters():
+            out.update({f'{name}/{k}/{pname}': v for k, v in opt.state.get(p, {}).items()})
+    for name in ('total', 'fix'):
+        out.update({f'balancer/{name}/{k}': v for k, v in getattr(balancer, name).items()})
+    return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+
+def dp_steps(torch, folder: Path, dtype: str, dp=None) -> dict:
+    """``DP_STEPS`` of the shipped config at full width in ``dtype`` from
+    ``folder``'s seeded global batch, with deterministic algorithms: on the
+    whole batch, or under ``dp`` on this rank's rows. Returns the state, each
+    step's ms (host clock, ending in a synchronize) and ms in collectives,
+    the collectives a step, the metrics and the kernels' launches."""
+    from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.parallel import assert_replicated
+    from encodec_pytorch_tpu_torch.train.step import train_step
+
+    spec = torch.load(folder / 'spec.pt', weights_only=True)
+    config = load_config([f'tpu.compute_dtype={dtype}'])
+    model, disc, opt_g, opt_d, balancer = _model_and_disc(torch, config, spec['seed'])
+    x = spec['batch']
+    if dp is not None:
+        rows = x.shape[0] // dp.world
+        x = x[dp.rank * rows:(dp.rank + 1) * rows]
+    x = x.cuda()
+    entries = _dp_entries()
+    for fn in entries.values():
+        fn.launches = 0
+    gen = torch.Generator(device='cuda').manual_seed(spec['seed'] + 2)
+    ms, coll_ms, colls, metrics = [], [], [], []
+    with deterministic(torch):
+        for n_q, train_disc in DP_STEPS:
+            c0, n0 = (dp.collective_ms(), dp.collectives) if dp is not None else (0.0, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(model, disc, balancer, opt_g, opt_d, x, n_q=n_q,
+                           train_disc=train_disc, lr_g=3e-4, lr_d=3e-4, sample_rate=SR,
+                           generator=gen, dp=dp)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if dp is not None:
+                coll_ms.append(dp.collective_ms() - c0)
+                colls.append(dp.collectives - n0)
+            metrics.append({k: float(v) for k, v in m.items()})
+    state = _dp_state(model, disc, (opt_g, opt_d), balancer)
+    if dp is not None:
+        assert_replicated(dp, list(state.values()))
+    expired = int((model.quantizer.vq.layers[0]._codebook.cluster_size < 2).sum())
+    return dict(state=state, ms=ms, collective_ms=coll_ms, collectives=colls, metrics=metrics,
+                launches={k: fn.launches for k, fn in entries.items()}, expired=expired,
+                dtype=str(model.encoder.dtype), rows=int(x.shape[0]))
+
+
+def _dp_entries() -> dict:
+    """The kernels the data-parallel path may launch: K1, K2 and K3 (the
+    test loop), K4 in f32 and bf16, K5 bf16 (not in ``config``)."""
+    return dict(_all_entries(), **_bf16_entries())
+
+
+# the kernels each dtype's training step must launch
+DP_KERNELS = {'bfloat16': ('disc_conv_forward_bf16', 'disc_conv_input_grad_bf16',
+                           'lstm_recurrence'),
+              'float32': ('disc_conv_forward', 'disc_conv_input_grad', 'lstm_recurrence')}
+
+
+def dp_rank_main(rank: int, folder: Path) -> int:
+    """A rank of phase 20 (a): joins the gloo group at ``folder``, runs
+    :func:`dp_steps` on its rows with its collectives timed, saves the result."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from encodec_pytorch_tpu_torch.ops import _build
+    from encodec_pytorch_tpu_torch.parallel import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _build.load()
+    dist.init_process_group('gloo', init_method=f'file://{folder}/rendezvous', rank=rank,
+                            world_size=DP_RANKS)
+    try:
+        dp = DataParallel()
+        dp.timed = True
+        torch.save({dtype: dp_steps(torch, folder, dtype, dp) for dtype in DP_DTYPES},
+                   folder / f'rank{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def data_parallel_phase(torch, seed, tmp: Path, smi: str) -> dict:
+    """(a) 2 ranks on the card over gloo against one process on the global
+    batch; (b) ``train_cli`` as one rank under torchrun's environment over
+    NCCL against the same run without a process group. Returns the kernels'
+    launches on the data-parallel path (the ranks' and (b)'s)."""
+    import socket
+
+    from encodec_pytorch_tpu_torch import train_cli
+    from encodec_pytorch_tpu_torch.config import load_config
+    from encodec_pytorch_tpu_torch.train import trainer as trainer_module
+    from encodec_pytorch_tpu_torch.train.step import train_step
+
+    config = load_config()
+    B, length = int(config.datasets.batch_size), int(config.datasets.tensor_cut)
+    folder = tmp / 'ranks'
+    folder.mkdir()
+    torch.save({'seed': seed, 'batch': torch.from_numpy(make_clip(seed + 70, B, length / SR))},
+               folder / 'spec.pt')
+    env = dict(os.environ, OMP_NUM_THREADS='4')
+    logs = [open(folder / f'rank{r}.log', 'w') for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / 'chip_smoke.py'), '--dp-rank', str(r),
+                               '--dp-dir', str(folder)], env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(DP_RANKS)]
+    try:
+        codes = [p.wait(timeout=DP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, code in enumerate(codes):
+        if code != 0:
+            log(f'data parallel: rank {r} failed ({code}); the end of its output:')
+            for line in (folder / f'rank{r}.log').read_text().splitlines()[-40:]:
+                log(f'  {line}')
+    check(codes == [0] * DP_RANKS, f'a rank of the 2-rank run failed: exit codes {codes}')
+    results = [torch.load(folder / f'rank{r}.pt', weights_only=True) for r in range(DP_RANKS)]
+    launches = {}
+    for dtype in DP_DTYPES:
+        ranks = [res[dtype] for res in results]
+        single = dp_steps(torch, folder, dtype)
+        for r, res in enumerate(ranks):
+            share = [c / m for c, m in zip(res['collective_ms'], res['ms'])]
+            log(f'data parallel (a): rank {r} of {DP_RANKS} on {smi}, gloo (every all-reduce '
+                f'staged through the host), {res["rows"]} of {B} rows x {length} in '
+                f'{res["dtype"]}, steps (n_q, disc) {list(DP_STEPS)}: ms per step '
+                f'{[round(t, 1) for t in res["ms"]]}, in collectives '
+                f'{[round(t, 1) for t in res["collective_ms"]]} (CUDA events on the step\'s '
+                f'stream; share {[round(x, 3) for x in share]}; {res["collectives"]} '
+                f'all-reduces a step); launches {res["launches"]}')
+        log(f'data parallel (a): one process on the {B} rows in {single["dtype"]}, the same '
+            f'steps: ms per step {[round(t, 1) for t in single["ms"]]}; launches '
+            f'{single["launches"]}')
+        a, b, want = ranks[0]['state'], ranks[1]['state'], single['state']
+        check(a.keys() == b.keys() == want.keys(), 'the ranks\' state differs in its tensors')
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not differ, f'the ranks disagree in {len(differ)} tensors: {differ[:5]}')
+        rel = {}
+        for g in DP_STATE_GROUPS:
+            keys = [k for k in want if _dp_group(k) == g]
+            rel[g] = _rel_norm(torch.cat([a[k].reshape(-1).double() for k in keys]),
+                               torch.cat([want[k].reshape(-1).double() for k in keys]))
+        embed = lambda st, k: st[f'model/quantizer.vq.layers.{k}._codebook.embed'].double()
+        stages = [_rel_norm(embed(a, k), embed(want, k)) for k in range(DP_STEPS[0][0])]
+        rel['stage 0'] = stages[0]
+        losses = {k: (ranks[0]['metrics'][-1][k], single['metrics'][-1][k])
+                  for k in ('loss_g', 'loss_w', 'loss_disc', 'l_feat')}
+        log(f'data parallel (a), {dtype}: the 2 ranks bit-equal ({len(a)} tensors); against one '
+            f'process on the global batch, relative norm of the difference by group {rel} (bars '
+            f'{DP_REL[dtype]}), of each stage\'s codebook {[float(f"{x:.3g}") for x in stages]}; '
+            f'codes of stage 0 under the expiry threshold after the steps: '
+            f'{ranks[0]["expired"]} (one process {single["expired"]}); the last step\'s losses '
+            f'(2 ranks, one process) {losses}')
+        check(all(rel[g] <= bar for g, bar in DP_REL[dtype].items()),
+              f'the 2-rank step in {dtype} left the global batch\'s: {rel}')
+        check(ranks[0]['expired'] > 0, 'the steps expired no code')
+        check(all(res['launches'][k] > 0 for res in ranks for k in DP_KERNELS[dtype]),
+              f'the ranks in {dtype} did not launch {DP_KERNELS[dtype]}')
+        for res in ranks:
+            for k, v in res['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f'data parallel (a): the 2 ranks took {wall:.1f} s from start to exit (start-up and the '
+        f'kernels\' load included)')
+
+    # kernels against plain at a rank's shapes (6 rows), from the trained state
+    model, disc, opt_g, opt_d, balancer = _model_and_disc(torch, config, seed)
+    x6 = torch.from_numpy(make_clip(seed + 71, B // DP_RANKS, length / SR)).cuda()
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    train_step(model, disc, balancer, opt_g, opt_d, x6, n_q=8, train_disc=True, lr_g=3e-4,
+               lr_d=3e-4, sample_rate=SR, generator=gen)
+    _, _, diffs, _, _ = kernel_vs_plain_step(torch, model, disc, balancer, opt_g, opt_d, x6, 8,
+                                             SR, seed)
+    log(f'data parallel (a): kernels against plain at a rank\'s {B // DP_RANKS} rows, bf16: '
+        f'losses {diffs["loss"]}, gradients {diffs["grad"]}, updates {diffs["update"]}')
+    check(all(v <= TRAIN_BF16_LOSS_REL for v in diffs['loss'].values())
+          and all(v <= TRAIN_BF16_GRAD_REL for v in diffs['grad'])
+          and all(v <= TRAIN_BF16_UPDATE_REL for v in diffs['update']),
+          'kernels disagree with plain at a rank\'s shapes')
+    del model, disc, opt_g, opt_d, balancer
+
+    # (b) train_cli under torchrun's environment, one rank over NCCL, 2 steps
+    overrides = train_overrides(tmp, seed, batches=2)
+    entries = _dp_entries()
+    real_init, real_step = trainer_module.initialize_distributed, trainer_module.train_step
+    coll = []
+
+    def timed_init(*args, **kwargs):
+        dp = real_init(*args, **kwargs)
+        if dp is not None:
+            dp.timed = True
+        return dp
+
+    def step(*args, dp=None, **kwargs):
+        c0 = dp.collective_ms() if dp is not None else 0.0
+        out = real_step(*args, dp=dp, **kwargs)
+        if dp is not None:
+            coll.append(dp.collective_ms() - c0)
+        return out
+
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    launcher = {'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_RANK': '0', 'MASTER_ADDR': '127.0.0.1',
+                'MASTER_PORT': str(port)}
+    check(not any(k in os.environ for k in launcher), 'a launcher\'s environment is set already')
+    for fn in entries.values():
+        fn.launches = 0
+    trainer_module.initialize_distributed, trainer_module.train_step = timed_init, step
+    try:
+        with deterministic(torch):
+            plain = train_cli.main(['--device', 'cuda', *overrides,
+                                    f'checkpoint.save_folder={tmp}/plain/'])
+            os.environ.update(launcher)
+            try:
+                ranked = train_cli.main(['--device', 'cuda', *overrides,
+                                         f'checkpoint.save_folder={tmp}/nccl/'])
+            finally:
+                for k in launcher:
+                    os.environ.pop(k, None)
+    finally:
+        trainer_module.initialize_distributed, trainer_module.train_step = real_init, real_step
+    b_launches = {k: fn.launches for k, fn in entries.items()}
+    same = [torch.equal(p, q) for p, q in zip(plain.replicated_tensors(),
+                                               ranked.replicated_tensors())]
+    steps_ms = [t for h in ranked.history for t in h['step_ms']]
+    log(f'data parallel (b): train_cli under torchrun\'s environment (RANK 0, WORLD_SIZE 1) on '
+        f'{ranked.device}: process group {ranked.dp.backend if ranked.dp else "none"}, rank '
+        f'{ranked.rank} of {ranked.world}; {len(steps_ms)} steps of '
+        f'{ranked.config.datasets.batch_size} x {ranked.tensor_cut}, ms per step '
+        f'{[round(t, 1) for t in steps_ms]}, in collectives {[round(t, 2) for t in coll]} '
+        f'(NCCL, CUDA events on the step\'s stream; share '
+        f'{[round(c / t, 4) for c, t in zip(coll, steps_ms)]}); without a process group '
+        f'{[round(t, 1) for h in plain.history for t in h["step_ms"]]} ms; state bit-equal in '
+        f'{sum(same)} of {len(same)} tensors; launches {b_launches}')
+    check(ranked.dp is not None and ranked.dp.backend == 'nccl' and ranked.world == 1
+          and plain.dp is None, 'train_cli did not join the launcher\'s NCCL process group')
+    check(len(steps_ms) == 2 and len(same) > 0 and all(same),
+          'one rank over NCCL is not bit-equal to the run without a process group')
+    check(all(b_launches[k] > 0 for k in DP_KERNELS['bfloat16']),
+          f'train_cli under the launcher did not launch {DP_KERNELS["bfloat16"]}')
+    return {k: launches[k] + b_launches[k] for k in b_launches}
+
+
 def bf16_codec_phase(torch, seed, ckpt: Path) -> dict:
     """The seeded ``encodec_24khz`` built with ``dtype=bfloat16`` on the 10 s
     clip at 6 kbps against the same weights in f32, with two sets of
@@ -3572,6 +3888,15 @@ def run(seed: int, before_dir=None) -> int:
     bf16_launches[BF16_ENTRIES[2]] = step48_launches[BF16_ENTRIES[2]]
     phase('accumulation and guard')
     accum_guard_phase(torch, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('data parallel')
+        dp_launches = data_parallel_phase(torch, seed, Path(tmp), smi)
+    for k in BF16_ENTRIES[:2]:
+        bf16_launches[k] += dp_launches[k]
+    for k in TRAIN_KERNELS:
+        train_launches[k] += dp_launches[k]
+    for k in CODEC_KERNELS:
+        launches[k] += dp_launches[k]
     phase('done')
 
     k4_src = 'encodec_pytorch_tpu_torch/csrc/disc_conv.cu'
@@ -3633,8 +3958,12 @@ def main() -> int:
                         help='another checkout of the port (e.g. the parent commit): the K1, '
                              'K3, K5 and K4 bf16 phases also time its kernels and compare their '
                              'outputs')
+    parser.add_argument('--dp-rank', type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--dp-dir', type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     try:
+        if args.dp_rank is not None:        # a rank of the data-parallel phase
+            return dp_rank_main(args.dp_rank, args.dp_dir)
         return run(args.seed, args.before)
     except (Exception, SystemExit) as e:   # any phase's failure fails the run
         traceback.print_exc()

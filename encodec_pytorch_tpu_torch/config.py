@@ -35,6 +35,17 @@ the CUDA kernel K5 (the im2col GEMM of
 JAX yaml has no such key because the JAX package wires that kernel nowhere.
 It is True in ``config_48k_stereo`` only. Keys of the yaml that the port does
 not read are left out.
+
+``distributed`` (``config.yaml:56-61``): ``data_parallel`` and ``world_size``
+(0: as many processes as the launcher started) are checked against the
+launcher (``train.trainer.check_supported``); ``init_method`` is ``env``
+(torchrun's environment; the yaml's ``jax`` names the JAX package's
+initialisation) or a ``file://``/``tcp://`` URL. ``find_unused_parameters``
+and ``torch_distributed_debug`` are accepted and read by nothing, as in the
+JAX package: the step has no ``DistributedDataParallel`` wrapper (every rank
+computes gradients for the same parameters and sums them in one flat
+all-reduce), and torch reads ``TORCH_DISTRIBUTED_DEBUG`` from the
+environment itself.
 """
 
 import ast
@@ -62,6 +73,8 @@ DEFAULTS: Dict[str, Any] = {
               'disc_win_lengths': [1024, 2048, 512], 'disc_hop_lengths': [256, 512, 128],
               'disc_n_ffts': [1024, 2048, 512], 'causal': True, 'norm': 'weight_norm',
               'segment': None, 'name': 'my_encodec'},
+    'distributed': {'data_parallel': True, 'world_size': 0, 'find_unused_parameters': False,
+                    'torch_distributed_debug': False, 'init_method': 'env'},
     'balancer': {'weights': {'l_t': 0.1, 'l_f': 1, 'l_g': 3, 'l_feat': 3}},
     'tpu': {'compute_dtype': 'bfloat16', 'disc_pallas_v2': True, 'disc_im2col': False,
             'grad_accum_steps': 1, 'skip_nonfinite_steps': False, 'async_checkpoint': True},
@@ -84,7 +97,8 @@ DEFAULTS_48K_STEREO: Dict[str, Any] = {
               'disc_win_lengths': [1024, 2048, 512], 'disc_hop_lengths': [256, 512, 128],
               'disc_n_ffts': [1024, 2048, 512], 'causal': False, 'norm': 'time_group_norm',
               'segment': 1.0, 'name': 'encodec_48khz'},
-    'distributed': {'data_parallel': True, 'world_size': 0},
+    'distributed': {'data_parallel': True, 'world_size': 0, 'find_unused_parameters': False,
+                    'torch_distributed_debug': False, 'init_method': 'env'},
     'balancer': {'weights': {'l_t': 0.1, 'l_f': 1, 'l_g': 4, 'l_feat': 4}},
     'tpu': {'compute_dtype': 'float32', 'disc_pallas_v2': True, 'disc_im2col': True,
             'async_checkpoint': True},
@@ -106,7 +120,8 @@ DEFAULTS_MONO_NQ2: Dict[str, Any] = {
               'disc_win_lengths': [1024, 2048, 512], 'disc_hop_lengths': [256, 512, 128],
               'disc_n_ffts': [1024, 2048, 512], 'causal': True, 'norm': 'weight_norm',
               'segment': None, 'name': 'my_encodec', 'n_q': 2},
-    'distributed': {'data_parallel': False, 'world_size': 1},
+    'distributed': {'data_parallel': False, 'world_size': 1, 'find_unused_parameters': False,
+                    'torch_distributed_debug': False, 'init_method': 'env'},
     'balancer': {'weights': {'l_t': 0.1, 'l_f': 1, 'l_g': 3, 'l_feat': 3}},
     'wandb': {'enabled': False},
     'tpu': {'compute_dtype': 'float32', 'disc_pallas_v2': True, 'disc_im2col': False,

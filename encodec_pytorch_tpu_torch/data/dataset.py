@@ -106,15 +106,22 @@ def pad_collate(batch: Sequence[np.ndarray], length: Optional[int] = None) -> np
 
 class DataLoader:
     """Fixed-length batches, shuffled by ``(seed, epoch)`` unless
-    ``shuffle`` is False; the last partial batch is dropped."""
+    ``shuffle`` is False; the last partial batch is dropped. Under data
+    parallelism each rank loads shard ``shard_id`` of ``num_shards``: the
+    indices ``idx[shard_id::num_shards]`` after the shuffle, which every rank
+    draws alike, so the shards are disjoint (the JAX package's loader, the
+    reference's ``DistributedSampler``)."""
 
     def __init__(self, dataset: CustomAudioDataset, batch_size: int,
-                 fixed_length: Optional[int] = None, seed: int = 0, shuffle: bool = True):
+                 fixed_length: Optional[int] = None, seed: int = 0, shuffle: bool = True,
+                 shard_id: int = 0, num_shards: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.fixed_length = fixed_length
         self.seed = seed
         self.shuffle = shuffle
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -122,12 +129,16 @@ class DataLoader:
         self.dataset.set_epoch(epoch)
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        return len(self.dataset) // self.num_shards // self.batch_size
 
-    def __iter__(self) -> Iterator[np.ndarray]:
+    def _indices(self) -> list:
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
+        return idx[self.shard_id::self.num_shards]
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        idx = self._indices()
         for b in range(len(self)):
             chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
             yield pad_collate([self.dataset[i] for i in chunk], self.fixed_length)

@@ -205,7 +205,7 @@ class EncodecModel(nn.Module):
 
     def forward_train(self, x: torch.Tensor, n_q: int,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[Sequence] = None):
+                      draws: Optional[Sequence] = None, dp=None):
         """Training forward of ``x [B, C, T]`` at ``n_q`` stages (the step
         draws it from the target bandwidths): for each segment (the whole clip
         when the model is not segmented) normalize, encode, quantize with the
@@ -213,7 +213,9 @@ class EncodecModel(nn.Module):
         decode and rescale; then overlap-add the segments and cut to T.
         ``draws`` (tests) holds the RVQ's draws of each segment in order: for
         an unsegmented model the per-stage list itself, for a segmented one a
-        list of them. Returns (output [B, C, T], commitment loss summed over
+        list of them. ``dp`` (a ``parallel.mesh.DataParallel``): ``x`` is this
+        rank's rows of the global batch, and the quantizer's EMA update is the
+        global batch's. Returns (output [B, C, T], commitment loss summed over
         the segments)."""
         length = x.shape[-1]
         segment_length, stride = self._segments(length)
@@ -226,7 +228,7 @@ class EncodecModel(nn.Module):
             frame, scale = self._normalize_frame(x[:, :, offset:offset + segment_length])
             emb = self.encoder(frame)                                    # [B, D, T']
             quantized, penalty = self.quantizer.forward_train(
-                emb.transpose(1, 2), n_q, generator, None if draws is None else draws[i])
+                emb.transpose(1, 2), n_q, generator, None if draws is None else draws[i], dp)
             out = self.decoder(quantized.transpose(1, 2))
             if scale is not None:
                 out = out * scale.reshape(-1, 1, 1)

@@ -1,0 +1,4 @@
+"""Data parallelism over ``torch.distributed`` (``mesh.py``)."""
+
+from .mesh import (DataParallel, assert_replicated, initialize_distributed,  # noqa: F401
+                   launcher_world_size, local_device, replica_checksums)

@@ -19,6 +19,17 @@ keep their state, as the JAX package's masked scan leaves them.
 
 Random draws (k-means seeds, expiry replacements) come from an explicit
 ``torch.Generator``; tests hand in the JAX package's index draws instead.
+
+Data parallelism (``dp``, a :class:`~..parallel.mesh.DataParallel`): each rank
+holds its rows of the global batch, and the training forward computes what the
+JAX package's SPMD forward computes on the whole global batch, where XLA makes
+the EMA statistics global sums (which fixes the reference's codebook broadcast,
+"FIXME not working"). The per-cluster counts and sums of the EMA update and of
+every k-means iteration are summed over the ranks before they are used; the
+k-means seeds and the expiry rows are drawn over the global row count with the
+same draw on every rank, and each rank fills the drawn rows it owns into a
+zero ``[bins, D]`` buffer that is summed (no rank gathers the residual). The
+nearest-code search stays local. Every rank ends with the same buffers.
 """
 
 import math
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import rvq_kernel
+from ..parallel.mesh import DataParallel
 
 
 class EuclideanCodebook(nn.Module):
@@ -178,26 +190,45 @@ def sample_indices(m: int, num: int, generator: Optional[torch.Generator],
 
 
 def sample_vectors(samples: torch.Tensor, num: int, generator: Optional[torch.Generator] = None,
-                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   idx: Optional[torch.Tensor] = None,
+                   dp: Optional[DataParallel] = None) -> torch.Tensor:
+    """``num`` rows of ``samples [M, D]`` (under ``dp``, of the global
+    ``[world·M, D]``): at ``idx``, or drawn from ``generator``."""
     if idx is None:
-        idx = sample_indices(samples.shape[0], num, generator, samples.device)
+        m = samples.shape[0] * (dp.world if dp is not None else 1)
+        idx = sample_indices(m, num, generator, samples.device)
+    if dp is not None:
+        return dp.gather_rows(samples, idx)
     return samples[idx.to(samples.device).long()]
+
+
+def cluster_stats(onehot: torch.Tensor, x: torch.Tensor,
+                  dp: Optional[DataParallel] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(counts ``[C]``, sums ``[C, D]``) of the rows of ``x [M, D]`` in each of
+    ``onehot [M, C]``'s clusters; under ``dp`` over every rank's rows, summed
+    in one all-reduce."""
+    counts, sums = onehot.sum(0), torch.matmul(onehot.t(), x)
+    if dp is None:
+        return counts, sums
+    both = dp.sum_(torch.cat([sums, counts[:, None]], 1))
+    return both[:, -1], both[:, :-1]
 
 
 def kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int,
            generator: Optional[torch.Generator] = None,
-           idx: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+           idx: Optional[torch.Tensor] = None,
+           dp: Optional[DataParallel] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K-means by matmul distances; clusters left empty keep their mean.
-    Returns (means [C, D], final cluster counts [C])."""
-    means = sample_vectors(samples, num_clusters, generator, idx)
+    Returns (means [C, D], final cluster counts [C]). Under ``dp`` it runs
+    over the global rows, ``samples`` being this rank's."""
+    means = sample_vectors(samples, num_clusters, generator, idx, dp)
     for _ in range(num_iters):
         onehot = F.one_hot(nearest(samples, means), num_clusters).to(samples.dtype)
-        bins = onehot.sum(0)
-        sums = torch.matmul(onehot.t(), samples)
+        bins, sums = cluster_stats(onehot, samples, dp)
         new_means = sums / torch.where(bins == 0, torch.ones_like(bins), bins)[:, None]
         means = torch.where((bins == 0)[:, None], means, new_means)
     bins = F.one_hot(nearest(samples, means), num_clusters).to(samples.dtype).sum(0)
-    return means, bins
+    return means, bins if dp is None else dp.sum_(bins)
 
 
 @torch.no_grad()
@@ -206,8 +237,11 @@ def stage_train_forward(state: StageState, x: torch.Tensor, *, decay: float = 0.
                         generator: Optional[torch.Generator] = None,
                         init_idx: Optional[torch.Tensor] = None,
                         expire_idx: Optional[torch.Tensor] = None,
-                        inited: Optional[bool] = None):
-    """One stage on ``x [M, D]`` (no gradient flows through here).
+                        inited: Optional[bool] = None,
+                        dp: Optional[DataParallel] = None):
+    """One stage on ``x [M, D]`` (no gradient flows through here). Under
+    ``dp``, ``x`` is this rank's rows of the global residual, and
+    ``init_idx`` and ``expire_idx`` index the global rows.
 
     Returns (quantized [M, D] before the straight-through estimator,
     codes [M], new state). ``inited`` is the host's reading of
@@ -219,7 +253,7 @@ def stage_train_forward(state: StageState, x: torch.Tensor, *, decay: float = 0.
     if inited is None:
         inited = bool(state.inited.item())
     if not inited:
-        means, counts = kmeans(x, embed.shape[0], kmeans_iters, generator, init_idx)
+        means, counts = kmeans(x, embed.shape[0], kmeans_iters, generator, init_idx, dp)
         embed, embed_avg, cluster_size = means, means, counts
         inited_t = torch.ones_like(state.inited)
 
@@ -227,15 +261,15 @@ def stage_train_forward(state: StageState, x: torch.Tensor, *, decay: float = 0.
     quantized = embed[idx]
 
     bins = embed.shape[0]
-    onehot = F.one_hot(idx, bins).to(x.dtype)
-    new_cluster = cluster_size * decay + (1 - decay) * onehot.sum(0)
-    new_avg = embed_avg * decay + (1 - decay) * torch.matmul(onehot.t(), x)
+    counts, embed_sum = cluster_stats(F.one_hot(idx, bins).to(x.dtype), x, dp)
+    new_cluster = cluster_size * decay + (1 - decay) * counts
+    new_avg = embed_avg * decay + (1 - decay) * embed_sum
     n = torch.sum(new_cluster)
     smoothed = (new_cluster + LAPLACE_EPS) / (n + bins * LAPLACE_EPS) * n
     embed_normalized = new_avg / smoothed[:, None]
     if threshold > 0:
         expired = (new_cluster < threshold)[:, None]
-        fresh = sample_vectors(x, bins, generator, expire_idx)
+        fresh = sample_vectors(x, bins, generator, expire_idx, dp)
         embed_normalized = torch.where(expired, fresh, embed_normalized)
         new_avg = torch.where(expired, fresh * smoothed[:, None], new_avg)
     return quantized, idx, StageState(inited_t, new_cluster, embed_normalized, new_avg)
@@ -245,10 +279,13 @@ def rvq_forward(states: Sequence[StageState], x: torch.Tensor, n_q: int, *,
                 decay: float = 0.99, threshold_ema_dead_code: int = 2, kmeans_iters: int = 50,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
-                inited: Optional[Sequence[bool]] = None):
+                inited: Optional[Sequence[bool]] = None,
+                dp: Optional[DataParallel] = None):
     """Residual VQ training forward over the first ``n_q`` stages (all of
     them when ``n_q`` is larger, as the JAX package's mask does; the penalty
-    is still divided by ``n_q``).
+    is still divided by ``n_q``). Under ``dp``, ``x`` is this rank's rows of
+    the global batch and the penalty this rank's (its mean over the ranks is
+    the global one).
 
     ``x [B, T, D]``. Returns (quantized [B, T, D] with the straight-through
     gradient, codes [K, B, T] int32 (stages past n_q hold 0), penalty,
@@ -267,7 +304,7 @@ def rvq_forward(states: Sequence[StageState], x: torch.Tensor, n_q: int, *,
             states[k], residual.reshape(B * T, D), decay=decay,
             threshold=threshold_ema_dead_code, kmeans_iters=kmeans_iters, generator=generator,
             init_idx=d.get('init'), expire_idx=d.get('expire'),
-            inited=None if inited is None else inited[k])
+            inited=None if inited is None else inited[k], dp=dp)
         q = q.reshape(B, T, D)
         q_ste = residual + (q - residual).detach()
         total = total + torch.mean(torch.square(q - residual))

@@ -11,6 +11,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import DataParallel
 from .core_vq import ResidualVectorQuantization, rvq_decode, rvq_encode, rvq_forward
 
 
@@ -49,11 +50,13 @@ class ResidualVectorQuantizer(nn.Module):
 
     def forward_train(self, x: torch.Tensor, n_q: int,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+                      dp: Optional[DataParallel] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward over ``n_q`` stages of ``x [B, T, D]``: returns
         (quantized with the straight-through gradient, commitment loss). The
-        codebook buffers are updated in place (EMA, k-means init, expiry).
+        codebook buffers are updated in place (EMA, k-means init, expiry);
+        under ``dp`` from every rank's rows (``x`` is this rank's), alike on
+        every rank.
 
         Which stages still need their k-means init is read from the buffers
         in one device-to-host copy, only for stages not yet seen inited
@@ -64,7 +67,7 @@ class ResidualVectorQuantizer(nn.Module):
         quantized, _, penalty, new_states = rvq_forward(
             states, x, n_q, decay=self.decay, kmeans_iters=self.kmeans_iters,
             threshold_ema_dead_code=self.threshold_ema_dead_code, generator=generator,
-            draws=draws, inited=self.vq.inited_flags(n))
+            draws=draws, inited=self.vq.inited_flags(n), dp=dp)
         self.vq.set_states(new_states)
         self.vq.mark_inited(n)
         return quantized, penalty

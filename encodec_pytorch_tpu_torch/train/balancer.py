@@ -8,11 +8,20 @@ of each gradient's norm (mean over batch items of the per-item L2 norm), and
 sums them into one cotangent for ``output.backward``. The EMA state
 (``total``, ``fix``: one scalar tensor per loss) lives on the balancer and is
 updated in place by each call.
+
+Under data parallelism (``dp``) each rank passes the gradients of its rows of
+the global batch (the global loss's gradient, restricted to those rows): the
+norm is the mean over the global batch of the per-item norms (the per-rank
+sums are summed in one all-reduce) and the EMA counts the global batch, as the
+JAX balancer does on its global batch under GSPMD. Every rank ends with the
+same state, equal to a one-process call on the global batch.
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import DataParallel
 
 
 EMA_DECAY = 0.999
@@ -25,13 +34,19 @@ class Balancer:
         self.total: Dict[str, torch.Tensor] = {}
         self.fix: Dict[str, torch.Tensor] = {}
 
-    def __call__(self, grads: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
-        """``grads``: {name: dL_name/d_output}, output ``[B, ...]``. Returns
-        the combined cotangent and the per-loss averaged norms."""
+    def __call__(self, grads: Dict[str, torch.Tensor],
+                 dp: Optional[DataParallel] = None) -> Tuple[torch.Tensor, Dict]:
+        """``grads``: {name: dL_name/d_output}, output ``[B, ...]`` (under
+        ``dp``, this rank's rows). Returns the combined cotangent (its rows)
+        and the per-loss averaged norms."""
         names = sorted(grads)
-        norms = {name: torch.mean(torch.sqrt(torch.sum(
-            torch.square(g), dim=tuple(range(1, g.dim()))))) for name, g in grads.items()}
+        sums = torch.stack([torch.sum(torch.sqrt(torch.sum(
+            torch.square(g), dim=tuple(range(1, g.dim()))))) for g in map(grads.get, names)])
         count = grads[names[0]].shape[0]
+        if dp is not None:
+            dp.sum_(sums)
+            count *= dp.world
+        norms = dict(zip(names, sums / count))
         beta = EMA_DECAY
         avg = {}
         for k in names:

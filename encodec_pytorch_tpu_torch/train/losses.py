@@ -5,13 +5,19 @@ Port of ``encodec_pytorch_tpu/train/losses.py``. The balancer weights
 the raw losses. Kept from the reference, as the JAX package keeps them:
 ``l_g`` is divided by K twice, and ``l_f`` sums L1 + L2 over seven log-mel
 scales (window 2^i, hop 2^i/4, i = 5..11, 64 mel bins).
+
+Every loss is a mean over the batch, so under data parallelism the global
+loss is the mean of the ranks' losses, but for ``l_feat``: each of its terms
+is a ratio of two means, ``mean|real - fake| / mean|real|``, and its
+denominator is taken over the global batch (``dp``).
 """
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from ..ops.stft import audio_to_mel
+from ..parallel.mesh import DataParallel
 
 MEL_SCALES: Sequence[int] = tuple(range(5, 12))
 
@@ -36,16 +42,23 @@ def wav_losses(input_wav: torch.Tensor, output_wav: torch.Tensor,
 
 
 def gan_losses(fmap_real: List[List[torch.Tensor]], logits_fake: List[torch.Tensor],
-               fmap_fake: List[List[torch.Tensor]]) -> Dict[str, torch.Tensor]:
+               fmap_fake: List[List[torch.Tensor]],
+               dp: Optional[DataParallel] = None) -> Dict[str, torch.Tensor]:
     """The losses whose gradient flows through the discriminator:
-    {l_g, l_feat}."""
+    {l_g, l_feat}. Under ``dp`` the batch is this rank's rows, and ``l_feat``'s
+    denominators, the real feature maps' mean magnitudes, are the global
+    batch's (one all-reduce)."""
     l_g = logits_fake[0].new_zeros(())
     l_feat = logits_fake[0].new_zeros(())
     K = len(fmap_real)
+    scale = torch.stack([torch.mean(torch.abs(real)) for fm in fmap_real for real in fm])
+    if dp is not None:
+        scale = dp.sum_(scale) / dp.world
+    scales = iter(scale)
     for k in range(K):
         l_g = l_g + torch.mean(torch.relu(1 - logits_fake[k])) / len(logits_fake)
         for real, fake in zip(fmap_real[k], fmap_fake[k]):
-            l_feat = l_feat + torch.mean(torch.abs(real - fake)) / torch.mean(torch.abs(real))
+            l_feat = l_feat + torch.mean(torch.abs(real - fake)) / next(scales)
     return {'l_g': l_g / K, 'l_feat': l_feat / (K * len(fmap_real[0]))}
 
 

@@ -54,6 +54,25 @@ schedules advance either way (the caller's). ``skipped_nonfinite`` is 1 when
 the update was dropped. Nothing is read on the host: on CUDA Adam must keep
 its step counts on the card (:func:`make_optimizer` with ``capturable``).
 
+Data parallelism (``dp``, a :class:`~..parallel.mesh.DataParallel`; the
+JAX step's SPMD semantics, ``train/step.py:1-14`` of the JAX package): each
+rank passes its rows of the global batch, ``[r·B/n, (r+1)·B/n)``, and its
+microbatch ``a`` is ``local[a::N]``, which joined in rank order is the global
+microbatch ``batch[a::N]``. Every rank then computes what a one-process step
+computes on the global batch: the quantizer's EMA, k-means and expiry and the
+balancer run on global statistics (``core_vq``, ``balancer``), ``l_feat``'s
+denominators are global (``losses``), each loss's cotangent and the
+commitment loss's are ``1/n`` (the global loss is the ranks' mean), and after
+the last microbatch the generator's and the discriminator's gradients are
+summed over the ranks, a flat all-reduce a module (the JAX step's psum; no
+``DistributedDataParallel``, whose reducer expects one backward through
+``forward``, while this step differentiates through a frozen discriminator and
+runs a manual backward of the generator). The metrics are global means, and the
+guard's flag is every rank's AND, so every rank keeps or reverts the same
+update. The caller draws ``n_q``, ``train_disc`` and the RVQ draws alike on
+every rank (the same seeds); every rank then ends the step with the same
+state, bit for bit.
+
 :func:`eval_step` is the test loop's step, without gradients.
 """
 
@@ -64,6 +83,7 @@ import torch
 
 from ..models.model import EncodecModel
 from ..models.msstftd import MultiScaleSTFTDiscriminator
+from ..parallel.mesh import DataParallel
 from ..quantization.core_vq import codebook_metrics
 from .balancer import Balancer
 from .losses import disc_loss, gan_losses, wav_losses
@@ -98,11 +118,15 @@ def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
 def _microbatch(model: EncodecModel, disc: MultiScaleSTFTDiscriminator, balancer: Balancer,
                 batch: torch.Tensor, n_q: int, train_disc: bool, sample_rate: int,
                 generator: Optional[torch.Generator],
-                draws: Optional[Sequence[Dict[str, torch.Tensor]]]) -> Dict[str, torch.Tensor]:
-    """Steps 1-4 on one microbatch: adds its gradients to ``.grad`` and
-    returns its losses (detached)."""
-    output, loss_w = model.forward_train(batch, n_q, generator, draws)
+                draws: Optional[Sequence[Dict[str, torch.Tensor]]],
+                dp: Optional[DataParallel]) -> Dict[str, torch.Tensor]:
+    """Steps 1-4 on one microbatch: adds its gradients (under ``dp``, this
+    rank's share of the global microbatch's) to ``.grad`` and returns its
+    losses (detached; under ``dp`` this rank's, and for the balanced
+    cotangent the squared norm of its rows)."""
+    output, loss_w = model.forward_train(batch, n_q, generator, draws, dp)
     out = output.detach().requires_grad_()
+    share = loss_w.new_full((), 1.0 / dp.world if dp is not None else 1.0)
 
     with contextlib.nullcontext() if train_disc else torch.no_grad():
         logits_real, fmap_real = disc(batch)
@@ -110,19 +134,20 @@ def _microbatch(model: EncodecModel, disc: MultiScaleSTFTDiscriminator, balancer
     with _frozen(disc):
         logits_fake, fmap_fake = disc(out)
     loss_vals = {**wav_losses(batch, out, sample_rate),
-                 **gan_losses(fmap_real, logits_fake, fmap_fake)}
-    grads = {name: torch.autograd.grad(loss_vals[name], out, retain_graph=True)[0]
+                 **gan_losses(fmap_real, logits_fake, fmap_fake, dp)}
+    grads = {name: torch.autograd.grad(loss_vals[name], out, share, retain_graph=True)[0]
              for name in LOSSES}
-    out_grad, _ = balancer(grads)
-    torch.autograd.backward([output, loss_w], [out_grad, torch.ones_like(loss_w)])
+    out_grad, _ = balancer(grads, dp)
+    torch.autograd.backward([output, loss_w], [out_grad, share])
 
     ld = output.new_zeros(())
     if train_disc:
         logits_fake_d, _ = disc(output.detach())
         ld = disc_loss(logits_real, logits_fake_d)
-        ld.backward()
+        ld.backward(share)
+    norm = torch.linalg.vector_norm(out_grad)
     return {'loss_w': loss_w.detach(), 'loss_disc': ld.detach(),
-            'balanced_grad_norm': torch.linalg.vector_norm(out_grad),
+            'balanced_grad_norm': norm if dp is None else torch.square(norm),
             **{k: v.detach() for k, v in loss_vals.items()}}
 
 
@@ -192,11 +217,15 @@ class NonFiniteGuard:
         torch._foreach_copy_(self.saved, self.tensors)
         self.saved_balancer = (dict(balancer.total), dict(balancer.fix))
 
-    def apply(self, metrics: Dict[str, torch.Tensor]) -> None:
-        """Keep or revert the step; sets ``metrics['skipped_nonfinite']``."""
+    def apply(self, metrics: Dict[str, torch.Tensor],
+              dp: Optional[DataParallel] = None) -> None:
+        """Keep or revert the step; sets ``metrics['skipped_nonfinite']``.
+        Under ``dp`` the step is kept only if it is finite on every rank."""
         ok = _all_finite([metrics['loss_g'], metrics['loss_w'], metrics['loss_disc'],
                           *self.model.parameters(), *self.disc.parameters(),
                           *(t for st in self.model.quantizer.vq.states() for t in st)])
+        if dp is not None:
+            ok = dp.all_(ok)
         with torch.no_grad():
             for t, s in zip(self.tensors, self.saved):
                 torch.where(ok, t, s, out=t)
@@ -211,11 +240,12 @@ def train_step(model: EncodecModel, disc: MultiScaleSTFTDiscriminator, balancer:
                batch: torch.Tensor, *, n_q: int, train_disc: bool, lr_g: float, lr_d: float,
                sample_rate: int, generator: Optional[torch.Generator] = None,
                draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
-               grad_accum_steps: int = 1, skip_nonfinite: bool = False
-               ) -> Dict[str, torch.Tensor]:
-    """One step on ``batch [B, C, T]``; updates the modules, the optimizers
-    and the balancer in place. Returns 0-d tensor metrics (no host sync).
-    ``grad_accum_steps`` must divide B."""
+               grad_accum_steps: int = 1, skip_nonfinite: bool = False,
+               dp: Optional[DataParallel] = None) -> Dict[str, torch.Tensor]:
+    """One step on ``batch [B, C, T]`` (under ``dp``, this rank's rows of
+    the global batch); updates the modules, the optimizers and the balancer
+    in place. Returns 0-d tensor metrics (no host sync; under ``dp`` the
+    global batch's). ``grad_accum_steps`` must divide B."""
     N = int(grad_accum_steps)
     if N < 1 or batch.shape[0] % N:
         raise ValueError(f'batch size {batch.shape[0]} must divide grad_accum_steps={N}')
@@ -225,11 +255,22 @@ def train_step(model: EncodecModel, disc: MultiScaleSTFTDiscriminator, balancer:
     opt_g.zero_grad(set_to_none=True)
     opt_d.zero_grad(set_to_none=True)
     sums: Dict[str, torch.Tensor] = {}
+    squares: List[torch.Tensor] = []       # under dp: each microbatch's cotangent norm²
     for a in range(N):
         mb = batch if N == 1 else batch[a::N].contiguous()
         mets = _microbatch(model, disc, balancer, mb, n_q, train_disc, sample_rate, generator,
-                           draws)
+                           draws, dp)
+        if dp is not None:
+            squares.append(mets.pop('balanced_grad_norm'))
         sums = {k: sums[k] + v for k, v in mets.items()} if sums else mets
+    if dp is not None:
+        keys = sorted(sums)
+        total = dp.sum_(torch.stack([sums[k] for k in keys] + squares))
+        sums = dict(zip(keys, total[:len(keys)] / dp.world),
+                    balanced_grad_norm=torch.sqrt(total[len(keys):]).sum())
+        for opt in (opt_g, opt_d):
+            dp.sum_flat_([p.grad for g in opt.param_groups for p in g['params']
+                          if p.grad is not None])
     avg = sums if N == 1 else {k: v / N for k, v in sums.items()}
     if N > 1:
         for opt in (opt_g, opt_d):
@@ -253,7 +294,7 @@ def train_step(model: EncodecModel, disc: MultiScaleSTFTDiscriminator, balancer:
         **codebook_metrics(cluster_size, float(model.quantizer.threshold_ema_dead_code)),
     }
     if guard is not None:
-        guard.apply(metrics)
+        guard.apply(metrics, dp)
     return metrics
 
 

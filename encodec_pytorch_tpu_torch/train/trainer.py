@@ -3,12 +3,23 @@ built from the config; ``run`` tests, then trains ``common.max_epoch``
 epochs, testing every ``common.test_interval`` and saving every
 ``common.save_interval`` epochs.
 
-Port of ``encodec_pytorch_tpu/train/trainer.py`` for one device, for every
-default set (``config``: 24 kHz mono; ``config_48k_stereo``: 48 kHz stereo,
-segmented, normalized, ``time_group_norm``; ``config_mono_nq2``: 24 kHz mono
-at n_q 2 on 1 s windows of the multi-channel scene dataset, selected by
-``datasets.dataset``). ``distributed.data_parallel`` over one card is the
-identity: the batch stays whole on the trainer's device. The step runs in
+Port of ``encodec_pytorch_tpu/train/trainer.py`` for every default set
+(``config``: 24 kHz mono; ``config_48k_stereo``: 48 kHz stereo, segmented,
+normalized, ``time_group_norm``; ``config_mono_nq2``: 24 kHz mono at n_q 2 on
+1 s windows of the multi-channel scene dataset, selected by
+``datasets.dataset``), on one card or data-parallel over several, one process
+a card: ``torchrun --nproc_per_node N -m encodec_pytorch_tpu_torch.train_cli``
+(``parallel/mesh.py``; ``--device cuda`` is then ``cuda:LOCAL_RANK``, NCCL on
+the cards, gloo with ``--device cpu``). Each rank loads its shard of both sets
+(``datasets.batch_size`` is the global batch, ``batch_size / N`` rows a rank)
+and the step computes the global batch's update on every rank
+(``train/step.py``). A config the launcher contradicts is refused before
+anything starts (:func:`check_supported`). Only rank 0 writes checkpoints,
+tensorboard and the reconstruction demo, and logs the training lines; every
+rank runs its test shard, and rank 0 reports its own shard's mean, as the JAX
+trainer does; every rank loads the resume checkpoint. Each process logs to
+``{save_folder}/train_encodec_bs{batch}_lr{lr}.log``, rank r > 0 to
+``..._p{r}.log``. The step runs in
 ``tpu.compute_dtype`` (``bfloat16`` in ``config``, as the JAX yaml has it:
 bf16 activations, f32 master weights, f32 in the LSTM, the quantizer and the
 losses; ``float32`` in the other sets), accumulates gradients over
@@ -17,8 +28,7 @@ drops a step whose losses or updated state are not finite (logged as the
 JAX trainer logs it). Losses go to tensorboard (``tensorboardX``, under
 ``{save_folder}/runs``, the JAX trainer's scalar names) where it imports, and
 otherwise the run logs the JAX trainer's warning and goes on; wandb is never
-written (``wandb.enabled`` logs a warning). Data parallelism over more than
-one card raises: it is not ported yet.
+written (``wandb.enabled`` logs a warning).
 
 State (``checkpoint.py``): one file holds the generator (in the reference
 trainer's layout, ``model_state_dict`` with the quantizer under
@@ -34,11 +44,15 @@ runs it between any two bytecodes, which can be inside a step between the
 generator's and the discriminator's update; the loop then writes
 ``epoch{completed}_preempt_lr{lr}.ckpt`` at the next step boundary (it never
 overwrites the epoch-boundary file), waits for it to land and exits with
-128 + the signal's number.
+128 + the signal's number. Under data parallelism the ranks take the largest
+signal number over all of them at each step boundary (a max all-reduce), so
+all stop after the same step even when one rank alone got the signal; rank 0
+writes the file, and no rank exits before it has landed.
 
 Randomness: weights are drawn from ``common.seed``; the step's bandwidth and
 discriminator coin from a host generator (seed + 1); the RVQ's k-means and
-expiry draws from a generator on the device (seed + 2).
+expiry draws from a generator on the device (seed + 2). Every rank seeds them
+alike, so every rank draws the same.
 """
 
 import logging
@@ -55,6 +69,8 @@ from ..data import CustomAudioDataset, DataLoader, MultiChannelAudioDataset
 from ..models.model import EncodecModel, from_trainer_layout, to_trainer_layout
 from ..models.msstftd import MultiScaleSTFTDiscriminator
 from ..ops import conv
+from ..parallel.mesh import (DataParallel, initialize_distributed, launcher_world_size,
+                             local_device)
 from ..utils import save_audio
 from .balancer import Balancer
 from .checkpoint import CheckpointWriter, load_checkpoint
@@ -87,16 +103,33 @@ def open_tensorboard(save_folder: str):
 DATASETS = {'csv': CustomAudioDataset, 'multi_channel': MultiChannelAudioDataset}
 
 
-def check_supported(config: Config) -> None:
-    """Raise on a config option that the port does not run yet."""
+def check_supported(config: Config, world: Optional[int] = None) -> None:
+    """Raise on a config option that the port does not run, or that the
+    launcher contradicts (``world``: the run's process count,
+    :func:`~..parallel.mesh.launcher_world_size` by default):
+    ``distributed.data_parallel`` False under more than one process, a
+    ``distributed.world_size`` above 0 that is not the process count, or a
+    batch that does not divide over the processes and then over
+    ``tpu.grad_accum_steps`` (the JAX trainer's checks)."""
     compute_dtype(config)
     dataset = str(config.datasets.get('dataset', 'csv'))
     if dataset not in DATASETS:
         raise NotImplementedError(
             f"datasets.dataset={dataset} is not ported yet; the port runs {sorted(DATASETS)}")
+    world = launcher_world_size() if world is None else int(world)
     dist = config.get('distributed', Config({}))
-    if bool(dist.get('data_parallel', False)) and int(dist.get('world_size', 0) or 0) > 1:
-        raise NotImplementedError('data parallelism over more than one card is not ported yet')
+    if not bool(dist.get('data_parallel', False)):
+        if world > 1:
+            raise ValueError(f'distributed.data_parallel is False, but the launcher started '
+                             f'{world} processes')
+    elif int(dist.get('world_size', 0) or 0) not in (0, world):
+        raise ValueError(f'distributed.world_size={dist.world_size}, but the launcher started '
+                         f'{world} process(es) (WORLD_SIZE); 0 takes them all')
+    batch = int(config.datasets.batch_size)
+    accum = int(config.get('tpu', Config({})).get('grad_accum_steps', 1))
+    if batch % world or (batch // world) % accum:
+        raise ValueError(f'batch_size {batch} must divide over {world} process(es) and then '
+                         f'tpu.grad_accum_steps={accum}')
 
 
 def compute_dtype(config: Config) -> torch.dtype:
@@ -146,13 +179,39 @@ def build_disc_from_config(config: Config, device: Device = 'cuda',
     return disc.to(device)
 
 
+def setup_logging(save_folder: str, tag: str) -> None:
+    """This process's log file, ``{save_folder}/train_encodec_{tag}.log``,
+    with the reference's format, in place of any earlier one (the JAX
+    trainer's ``setup_logging``; the console is the caller's)."""
+    for handler in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
+        logger.removeHandler(handler)
+        handler.close()
+    os.makedirs(save_folder, exist_ok=True)
+    handler = logging.FileHandler(os.path.join(save_folder, f'train_encodec_{tag}.log'))
+    handler.setFormatter(logging.Formatter(
+        '%(asctime)s: %(levelname)s: [%(filename)s: %(lineno)d]: %(message)s'))
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+
+
 class Trainer:
     def __init__(self, config: Config, device: Device = 'cuda'):
         check_supported(config)
-        self.device = torch.device(device)
+        device = torch.device(device)
+        if device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device; pass device="cpu" to train on the CPU')
+        dist_cfg = config.get('distributed', Config({}))
+        self.dp: Optional[DataParallel] = None
+        if bool(dist_cfg.get('data_parallel', False)):
+            self.dp = initialize_distributed(local_device(device),
+                                             str(dist_cfg.get('init_method', 'env')))
+        self.device = local_device(device) if self.dp else device
+        self.rank, self.world = (self.dp.rank, self.dp.world) if self.dp else (0, 1)
+        self.is_main = self.rank == 0
+        tag = f'bs{config.datasets.batch_size}_lr{config.optimization.lr}'
+        setup_logging(str(config.checkpoint.save_folder),
+                      tag if self.is_main else f'{tag}_p{self.rank}')
         if self.device.type == 'cuda':
-            if not torch.cuda.is_available():
-                raise RuntimeError('no CUDA device; pass device="cpu" to train on the CPU')
             # f32 means f32: cuDNN would otherwise run the f32 convs in TF32,
             # and cuBLAS may reduce bf16 products at reduced precision
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,9 +221,6 @@ class Trainer:
         tpu = config.get('tpu', Config({}))
         self.grad_accum_steps = int(tpu.get('grad_accum_steps', 1))
         self.skip_nonfinite = bool(tpu.get('skip_nonfinite_steps', False))
-        if int(config.datasets.batch_size) % self.grad_accum_steps:
-            raise ValueError(f'batch_size {config.datasets.batch_size} must divide '
-                             f'tpu.grad_accum_steps={self.grad_accum_steps}')
         seed = int(config.common.seed or 0)
         init = torch.Generator().manual_seed(seed)
         self.model = build_model_from_config(config, self.device, init).train()
@@ -184,13 +240,13 @@ class Trainer:
             logger.warning('wandb unavailable: the port does not log to wandb')
 
         self.tensor_cut = int(config.datasets.tensor_cut)
-        batch_size = int(config.datasets.batch_size)
+        local_batch = int(config.datasets.batch_size) // self.world
         self.trainset = build_dataset(config, 'train')
         self.testset = build_dataset(config, 'test')
-        self.trainloader = DataLoader(self.trainset, batch_size, fixed_length=self.tensor_cut,
-                                      seed=seed)
-        self.testloader = DataLoader(self.testset, batch_size, fixed_length=self.tensor_cut,
-                                     seed=seed, shuffle=False)
+        shard = dict(fixed_length=self.tensor_cut, seed=seed, shard_id=self.rank,
+                     num_shards=self.world)
+        self.trainloader = DataLoader(self.trainset, local_batch, **shard)
+        self.testloader = DataLoader(self.testset, local_batch, shuffle=False, **shard)
         steps_per_epoch = max(1, len(self.trainloader))
         max_iter = int(config.common.max_epoch) * steps_per_epoch
         warmup_iter = int(config.lr_scheduler.warmup_epoch) * steps_per_epoch
@@ -226,9 +282,10 @@ class Trainer:
                             'they are skipped', *self._resume_skip, steps_per_epoch)
             logger.info('loaded checkpoint %s (step %d), resume from epoch %d', path,
                         self.step, self.resume_epoch)
-        logger.info('device %s; %d batches an epoch, %d test batches; generator %d '
-                    'parameters, discriminator %d; compute dtype %s, %d microbatch(es) a step, '
-                    'non-finite guard %s', self.device, len(self.trainloader),
+        logger.info('rank %d of %d, device %s; %d batches an epoch, %d test batches (of this '
+                    'rank\'s shard); generator %d parameters, discriminator %d; compute dtype '
+                    '%s, %d microbatch(es) a step, non-finite guard %s', self.rank, self.world,
+                    self.device, len(self.trainloader),
                     len(self.testloader), sum(p.numel() for p in self.model.parameters()),
                     sum(p.numel() for p in self.disc.parameters()), compute_dtype(config),
                     self.grad_accum_steps, 'on' if self.skip_nonfinite else 'off')
@@ -267,10 +324,26 @@ class Trainer:
         self.device_gen.set_state(state['device_generator'])
         self.step = int(state['step'])
 
-    def save(self, epoch: int, suffix: str = '') -> str:
+    def close(self) -> None:
+        """Release the process group if this trainer started it."""
+        if self.dp is not None:
+            self.dp.close()
+
+    def replicated_tensors(self) -> List[torch.Tensor]:
+        """The state every rank holds alike: parameters, buffers, Adam's
+        state and the balancer's EMA."""
+        out = [t for m in (self.model, self.disc) for t in m.state_dict().values()]
+        for opt in (self.opt_g, self.opt_d):
+            out += [v for st in opt.state.values() for _, v in sorted(st.items())]
+        return out + [d[k] for d in (self.balancer.total, self.balancer.fix) for k in sorted(d)]
+
+    def save(self, epoch: int, suffix: str = '') -> Optional[str]:
         """Write the state to ``{save_location}epoch{epoch}{suffix}_lr{lr}.ckpt``,
         on a writer thread unless ``tpu.async_checkpoint`` is False; returns
-        the path."""
+        the path. Only rank 0 writes (the state is every rank's alike); the
+        others return None."""
+        if not self.is_main:
+            return None
         cfg = self.config
         path = f'{cfg.checkpoint.save_location}epoch{epoch}{suffix}_lr{cfg.optimization.lr}.ckpt'
         async_write = bool(cfg.get('tpu', Config({})).get('async_checkpoint', True))
@@ -281,15 +354,20 @@ class Trainer:
         return path
 
     def _preempt_point(self, completed_epochs: int) -> None:
-        """At a step boundary: if SIGTERM came, write the ``_preempt``
-        checkpoint, wait for it and exit with 128 + the signal."""
-        if self._signum is None:
+        """At a step boundary: if SIGTERM came (to any rank), write the
+        ``_preempt`` checkpoint, wait for it and exit with 128 + the signal."""
+        signum = self._signum or 0
+        if self.dp is not None:
+            signum = int(self.dp.max_(torch.tensor([signum], device=self.dp.device))[0])
+        if not signum:
             return
         logger.warning('signal %d: writing the preemption checkpoint at step %d',
-                       self._signum, self.step)
+                       signum, self.step)
         self.save(completed_epochs, suffix='_preempt')
         self.writer.wait_pending()
-        raise SystemExit(128 + self._signum)
+        if self.dp is not None:
+            self.dp.barrier()       # no rank leaves before the file has landed
+        raise SystemExit(128 + signum)
 
     def train_one_epoch(self, epoch: int) -> Dict[str, Any]:
         """One pass over the training set (less the batches a mid-epoch
@@ -326,13 +404,14 @@ class Trainer:
                 n_q=self.n_q_table[bw_index], train_disc=disc_allowed and coin,
                 lr_g=self.gen_schedule(self.step), lr_d=self.disc_schedule(self.step),
                 sample_rate=int(cfg.model.sample_rate), generator=self.device_gen,
-                grad_accum_steps=self.grad_accum_steps, skip_nonfinite=self.skip_nonfinite)
+                grad_accum_steps=self.grad_accum_steps, skip_nonfinite=self.skip_nonfinite,
+                dp=self.dp)
             self.step += 1
             self._sync()
             step_ms.append(1000 * (time.perf_counter() - t0))
             acc = {k: acc.get(k, 0) + v.detach().cpu() for k, v in metrics.items()}
             since_log += 1
-            if idx % log_interval == 0 or idx == n - 1:
+            if self.is_main and (idx % log_interval == 0 or idx == n - 1):
                 avg = {k: float(v) / len(step_ms) for k, v in acc.items()}
                 logger.info('Epoch %d %d/%d\tAvg loss_G: %.4f\tAvg loss_W: %.4f\tlr_G: %.6e\t'
                             'lr_D: %.6e\tloss_disc: %.4f\t%.1f ms/step', epoch, idx + 1, n,
@@ -369,9 +448,9 @@ class Trainer:
         cfg = self.config
         n = len(self.testloader)
         if n == 0:
-            logger.warning('the test set holds %d clips, fewer than one batch of %d: '
-                           'no test batch at epoch %d', len(self.testset),
-                           self.testloader.batch_size, epoch)
+            logger.warning('the test set holds %d clips, fewer than one batch of %d on each '
+                           'of %d rank(s): no test batch at epoch %d', len(self.testset),
+                           self.testloader.batch_size, self.world, epoch)
             return None
         sample_rate = int(cfg.model.sample_rate)
         self.model.eval()
@@ -386,6 +465,9 @@ class Trainer:
             avg = {k: float(v) / n for k, v in sums.items()}
             self._sync()
             avg['ms'] = 1000 * (time.perf_counter() - t0)
+            self.test_history.append(dict(avg, epoch=epoch))
+            if not self.is_main:
+                return avg
             logger.info('| TEST | epoch: %d | loss_g: %.4f | loss_disc: %.4f', epoch,
                         sum(v for k, v in avg.items() if k not in ('loss_disc', 'ms')),
                         avg['loss_disc'])
@@ -401,7 +483,6 @@ class Trainer:
         folder = Path(str(cfg.checkpoint.save_folder))
         save_audio(wav, folder / 'GT.wav', sr)
         save_audio(recon, folder / 'Reconstruction.wav', sr)
-        self.test_history.append(dict(avg, epoch=epoch))
         return avg
 
     def run(self) -> List[Dict[str, Any]]:
@@ -418,7 +499,7 @@ class Trainer:
             self._signum = signum
 
         previous = signal.signal(signal.SIGTERM, on_term)
-        self.tb = open_tensorboard(str(cfg.checkpoint.save_folder))
+        self.tb = open_tensorboard(str(cfg.checkpoint.save_folder)) if self.is_main else None
         try:
             self.test(0)
             for epoch in range(self.resume_epoch + 1, int(cfg.common.max_epoch) + 1):

@@ -55,7 +55,10 @@ def main(argv=None):
 
     from .train.trainer import Trainer
     trainer = Trainer(load_config(args.overrides, args.config), device=args.device)
-    trainer.run()
+    try:
+        trainer.run()
+    finally:
+        trainer.close()
     return trainer
 
 

@@ -158,7 +158,9 @@ def _walk(node: dict, prefix=''):
 def test_mono_nq2_config_keys_equal_the_yaml(name):
     ours = tconfig.load_config(name=name).to_dict()
     ref = jax_load_config(name).to_dict()
-    port_only = {'tpu.disc_pallas_v2', 'tpu.disc_im2col', 'tpu.async_checkpoint'}
+    # the port's own keys, and the init method (torchrun's environment, not jax)
+    port_only = {'tpu.disc_pallas_v2', 'tpu.disc_im2col', 'tpu.async_checkpoint',
+                 'distributed.init_method'}
     keys = 0
     for key, value in _walk(ours):
         if key in port_only:
@@ -173,6 +175,8 @@ def test_mono_nq2_config_keys_equal_the_yaml(name):
     assert ours['datasets']['dataset'] == 'multi_channel' and ours['model']['n_q'] == 2
     assert ours['model']['train_discriminator'] == 0.5
     assert ours['tpu']['compute_dtype'] == 'float32'
+    assert (ours['distributed']['init_method'], ref['distributed']['init_method']) == ('env',
+                                                                                     'jax')
 
 
 def test_train_cli_mono_nq2_trains_resumes_and_logs(scene_root, tmp_path, monkeypatch, caplog):

@@ -333,9 +333,9 @@ def test_whole_train_step_matches_jax(jax_step):
 def test_train_cli_cpu(tmp_path, monkeypatch):
     """The port's CLI: one epoch of two steps on the CPU at a tiny config (in
     the default set's bf16), finite losses, both models trained; without a
-    card, the default device is refused, an option the port does not run yet
-    (data parallelism over two cards) raises, and so does a resume without a
-    checkpoint path."""
+    card, the default device is refused, a config the launcher contradicts
+    (data parallelism over two processes, started as one) raises, and so does
+    a resume without a checkpoint path."""
     rng = np.random.default_rng(9)
     paths = []
     for i in range(4):
@@ -361,7 +361,7 @@ def test_train_cli_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(SystemExit):
         train_cli.main(tiny)
-    with pytest.raises(NotImplementedError, match='not ported yet'):
+    with pytest.raises(ValueError, match='world_size=2, but the launcher started 1'):
         train_cli.main(['--device', 'cpu', *tiny, 'distributed.data_parallel=true',
                         'distributed.world_size=2'])
     with pytest.raises(ValueError, match='checkpoint_path'):

@@ -255,6 +255,6 @@ def test_train_cli_48k_cpu(tmp_path):
                            (build_disc_from_config(config, 'cpu', init), disc)):
         assert any(not torch.equal(a, b) for a, b in zip(built.parameters(),
                                                          trained.parameters()))
-    with pytest.raises(NotImplementedError, match='not ported yet'):
+    with pytest.raises(ValueError, match='world_size=4, but the launcher started 1'):
         train_cli.main(['--device', 'cpu', '--config', 'config_48k_stereo', *tiny,
                         'distributed.world_size=4'])
