@@ -6,7 +6,8 @@ resume after SIGTERM, the test loop, trained-checkpoint loading, weight-norm
 folding), the mono-nq2 training mode on the multi-channel scene dataset with
 its evaluation (``cal_metrics``), the 48 kHz stereo family (codec,
 CodecServer, training step), gradient accumulation, the non-finite step
-guard and data-parallel training once on one NVIDIA GPU.
+guard, data-parallel training, deployed artifacts (``deploy.py``) and
+segment-parallel inference once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--before DIR]
 
@@ -116,6 +117,16 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    (``device_ms``), a 750-step encode launch (the codec encodes 256 steps
    a launch), both plain versions'
    times, the bound; the LM step's ms.
+6c. A deployed artifact (``deploy.py``) of phase 3's seeded ``encodec_24khz``:
+   ``deploy_cli --seconds 10 --bandwidths 6 --weights fold`` with all three
+   kinds, exported on the card (seconds, bytes), ``DeployedCodec.load`` onto
+   it. Over its encode, decode and roundtrip calls the K1, K2 and K3 counters
+   go from 0 to > 0 (the programs hold them as ``encodec::*`` nodes); codes
+   identical to ``LiveCodec(weights='fold')``'s, the decode and roundtrip
+   within 1e-6 relative norm (and whether bit-equal); a ``CodecServer`` over
+   the artifact answers 16 round trips of 10 s, submitted before its worker
+   starts (one batch), each within 1e-6 of ``LiveCodec`` on the 16 clips at
+   once; roundtrip RTF at B 1 and 16, artifact against ``LiveCodec``.
 7. K4 (discriminator conv, 3xTF32 on the tensor cores) against its plain
    version (cuDNN's ``F.conv2d`` and ``conv2d_input``, TF32 off) at the 12
    eligible conv shapes of one discriminator call at the training config
@@ -220,6 +231,18 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     ``plain_path()`` (K6's plain version) gives the CLI's bytes, and frame 0
     decoded a step a launch by K6 and by its plain version, on the same
     pdfs on the card, gives the same symbols and coder state at every step.
+14c. The same as 6c on phase 13's seeded ``encodec_48khz`` (raw weights:
+    ``time_group_norm`` does not fold), 10 s stereo at 6 kbps: 11 ragged
+    normalized frames (10 of 150 codes, one of 15) with their scales, K1 and
+    K2 counted, K3 counted 0.
+14d. Segment-parallel inference (``parallel/segment.py``) on that model and
+    a 10 s stereo clip at 6 kbps: ``encode_parallel``/``decode_parallel`` in
+    one process (the 10 full segments in one call) against the sequential
+    ``model.encode``/``decode``; then 2 ranks on the card over gloo
+    (subprocesses of this script, ``--seg-rank``), each coding 5 of the
+    segments and gathering the rest: the ranks bit-equal, and against one
+    process codes >= 99.9 % identical and the wav within 1e-5 relative norm
+    (``SEG_CODES_SHARE``, ``SEG_WAV_REL``, fixed before the first run).
 15. The 48 kHz training path through ``train_cli --config config_48k_stereo``
     at full width (B 32 x 48000 stereo, f32; 96 synthetic 1.25 s clips, one
     epoch of 3 steps, no LR warmup): the K5, K4 (forward and dx) and K2
@@ -286,8 +309,9 @@ phases 7 and 11 hold K4's f32 outputs bit-equal to that checkout's.
 
 Output: one line per measurement (each phase's start with the seconds since
 the script started), then a JSON line with each kernel's numbers (launches:
-the 24 and 48 kHz codec CLIs', servers' and LM codec runs' and phases 10's
-and 10b's for K1, K2 and K3; both training paths' and phases 10's and 10b's
+the 24 and 48 kHz codec CLIs', servers' and LM codec runs', phases 10's
+and 10b's and the deployed artifacts' and segment-parallel runs' for K1, K2
+and K3; both training paths' and phases 10's and 10b's
 for K4; the 48 kHz training
 steps' for K5 (and phase 20's data-parallel path's for K1, K2, K3 and K4);
 the on-device LM route's at 24 and 48 kHz for K6, whose ``ms`` is
@@ -3762,6 +3786,261 @@ def bf16_stream_check(torch, seed, model) -> dict:
     return launches
 
 
+# deployed artifacts (deploy.py) and segment-parallel inference (parallel/segment.py)
+DEPLOY_BANDWIDTH = 6.
+DEPLOY_REQUESTS = 16
+DEPLOY_WAV_REL = 1e-6
+# segment-parallel against one process and against the sequential model, fixed
+# before the first run on the card
+SEG_CODES_SHARE = 0.999
+SEG_WAV_REL = 1e-5
+SEG_RANKS = 2
+SEG_TIMEOUT = 300
+
+
+def _frames_of(out, normalize: bool):
+    """(codes tuple, scales tuple or None) of an encode's output."""
+    return (tuple(out[0]), tuple(out[1])) if normalize else (tuple(out), None)
+
+
+def _median_s(torch, fn, runs: int) -> float:
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def deploy_phase(torch, seed, tmp: Path, ckpt: Path, model_name: str, smi: str) -> dict:
+    """``deploy_cli`` on the seeded full-width ``model_name`` (10 s entries at
+    6 kbps, all three kinds; folded weights where the model has weight norm),
+    ``DeployedCodec.load`` on the card, its calls against ``LiveCodec``, a
+    ``CodecServer`` over it, roundtrip RTF at B 1 and 16 against LiveCodec.
+    Returns the K1, K2, K3 launches of the artifact's calls and its server."""
+    import threading
+
+    from encodec_pytorch_tpu_torch import deploy_cli
+    from encodec_pytorch_tpu_torch.deploy import DeployedCodec
+    from encodec_pytorch_tpu_torch.models.model import MODELS
+    from encodec_pytorch_tpu_torch.serve import CodecServer, LiveCodec
+
+    model = MODELS[model_name](checkpoint=ckpt, device='cuda')
+    fold = model.segment is None                 # the 24 kHz model has weight norm
+    weights = 'fold' if fold else 'raw'
+    path = tmp / f'{model_name}.ecdz'
+    t0 = time.perf_counter()
+    meta = deploy_cli.main([str(path), '-m', model_name, '-c', str(ckpt), '--seconds',
+                            str(SECONDS), '--bandwidths', f'{DEPLOY_BANDWIDTH:g}', '--weights',
+                            weights, '--device', 'cuda', '-f'])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codec = DeployedCodec.load(path, device='cuda')
+    load_s = time.perf_counter() - t0
+    live = LiveCodec(model, default_bandwidth=DEPLOY_BANDWIDTH, weights=weights, device='cuda')
+    sr, channels, normalize = model.sample_rate, model.channels, model.normalize
+    log(f'{model_name} artifact on {smi}: deploy_cli --seconds {SECONDS} --bandwidths '
+        f'{DEPLOY_BANDWIDTH:g} --weights {weights}, all kinds: {len(meta["entries"])} entries '
+        f'{[e["name"] for e in meta["entries"]]}, n_q {meta["entries"][0]["n_q"]}, frames '
+        f'{meta["entries"][0]["frame_tfs"]}; export {export_s:.2f} s (model load and '
+        f'tracing on the card\'s host), {path.stat().st_size} bytes; DeployedCodec.load onto '
+        f'the card {load_s:.2f} s')
+    x = torch.from_numpy(make_clip(seed + 80, 1, SECONDS, sr, channels)).cuda()
+    reset_counts()
+    codes, scales = _frames_of(codec.encode(x), normalize)
+    wav = codec.decode(codes, scales)
+    rt = codec.roundtrip(x)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f'{model_name} artifact: kernel launches over encode, decode and roundtrip {launches}')
+    check(launches['rvq_encode'] > 0 and launches['lstm_recurrence'] > 0,
+          f'the artifact did not launch K1 and K2: {launches}')
+    check((launches['resblock'] > 0) == fold,
+          f'K3 launched {launches["resblock"]} times (weight norm: {fold})')
+    lcodes, lscales = _frames_of(live.encode(x), normalize)
+    lwav = live.decode(lcodes, lscales)
+    lrt = live.roundtrip(x)
+    check(len(codes) == len(lcodes) == meta['entries'][0]['n_frames'],
+          f'{len(codes)} frames, LiveCodec {len(lcodes)}')
+    codes_equal = all(torch.equal(a, b) for a, b in zip(codes, lcodes))
+    scales_equal = scales is None or all(torch.equal(a, b) for a, b in zip(scales, lscales))
+    rel_dec, rel_rt = _rel_norm(wav, lwav), _rel_norm(rt, lrt)
+    log(f'{model_name} artifact vs LiveCodec(weights={weights!r}) on the card, {SECONDS} s at '
+        f'{DEPLOY_BANDWIDTH:g} kbps: {len(codes)} frames of code lengths '
+        f'{[c.shape[-1] for c in codes]}, codes identical {codes_equal}, scales identical '
+        f'{scales_equal}; decode relative error {rel_dec:.3e} (bit-equal '
+        f'{torch.equal(wav, lwav)}), roundtrip {rel_rt:.3e} (bit-equal {torch.equal(rt, lrt)})')
+    check(codes_equal and scales_equal and max(rel_dec, rel_rt) <= DEPLOY_WAV_REL,
+          f'the {model_name} artifact disagrees with LiveCodec')
+
+    clips = make_clip(seed + 81, DEPLOY_REQUESTS, SECONDS, sr, channels)
+    ref = live.roundtrip(clips).cpu().numpy()
+    reset_counts()
+    server = CodecServer(codec, max_batch=DEPLOY_REQUESTS, max_wait_ms=50.0)
+    futures = [server.submit('roundtrip', c) for c in clips]      # before the worker starts
+    t0 = time.perf_counter()
+    server.start()
+    try:
+        outs = [f.result(timeout=300) for f in futures]
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    for k, v in read_counts().items():
+        launches[k] += v
+    stats = server.stats()
+    rels = [_rel_norm(torch.from_numpy(o), torch.from_numpy(r)) for o, r in zip(outs, ref)]
+    equal = sum(np.array_equal(o, r) for o, r in zip(outs, ref))
+    log(f'{model_name} artifact: CodecServer, {DEPLOY_REQUESTS} round trips of {SECONDS} s in '
+        f'{stats["batches"]} batch(es) of mean {stats["mean_batch"]:.1f}, {wall:.3f} s; against '
+        f'LiveCodec on the same 16 clips at once: max relative error {max(rels):.3e}, '
+        f'{equal} of {DEPLOY_REQUESTS} bit-equal')
+    check(len(outs) == DEPLOY_REQUESTS and max(rels) <= DEPLOY_WAV_REL,
+          'the CodecServer over the artifact disagrees with LiveCodec')
+
+    x16 = torch.from_numpy(clips).cuda()
+    rtf = {}
+    for name, fn in (('artifact', codec.roundtrip), ('LiveCodec', live.roundtrip)):
+        for batch, xb, runs in ((1, x, 5), (16, x16, 3)):
+            t = _median_s(torch, lambda: fn(xb), runs)
+            rtf[(name, batch)] = (batch * SECONDS / t, 1e3 * t)
+    log(f'{model_name} roundtrip RTF on {smi} (audio seconds a second; median ms): '
+        + ', '.join(f'{n} B {b}: {v[0]:.2f} ({v[1]:.1f} ms)' for (n, b), v in rtf.items()))
+    return launches
+
+
+def _seg_clip(seed: int):
+    return make_clip(seed + 90, 1, SECONDS, SR48, 2)
+
+
+def seg_rank_main(rank: int, folder: Path) -> int:
+    """A rank of the segment-parallel phase: joins the gloo group at
+    ``folder``, codes the clip with its share of the segments, saves the
+    frames, the wav, its ms and its launches."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from encodec_pytorch_tpu_torch.models.model import encodec_model_48khz
+    from encodec_pytorch_tpu_torch.ops import _build
+    from encodec_pytorch_tpu_torch.parallel import DataParallel
+    from encodec_pytorch_tpu_torch.parallel.segment import decode_parallel, encode_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    spec = torch.load(folder / 'spec.pt', weights_only=True)
+    model = encodec_model_48khz(checkpoint=spec['ckpt'], device='cuda')
+    model.set_target_bandwidth(DEPLOY_BANDWIDTH)
+    x = spec['x'].cuda()
+    dist.init_process_group('gloo', init_method=f'file://{folder}/rendezvous', rank=rank,
+                            world_size=SEG_RANKS)
+    try:
+        dp = DataParallel()
+        decode_parallel(model, encode_parallel(model, x, dp), dp)        # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = encode_parallel(model, x, dp)
+        wav = decode_parallel(model, frames, dp)[:, :, :x.shape[-1]]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        torch.save({'codes': [c.cpu() for c, _ in frames], 'scales': [s.cpu() for _, s in frames],
+                    'wav': wav.cpu(), 'ms': ms, 'launches': read_counts()},
+                   folder / f'rank{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def segment_parallel_phase(torch, seed, tmp: Path, ckpt: Path, smi: str) -> dict:
+    """``roundtrip_parallel`` on the seeded 48 kHz model: one process against
+    the sequential ``model(x)``, then 2 ranks on the card over gloo against
+    each other (bit-equal) and against one process (``SEG_CODES_SHARE``,
+    ``SEG_WAV_REL``). Returns the K1, K2, K3 launches of both runs."""
+    from encodec_pytorch_tpu_torch.models.model import encodec_model_48khz
+    from encodec_pytorch_tpu_torch.parallel.segment import decode_parallel, encode_parallel
+
+    model = encodec_model_48khz(checkpoint=ckpt, device='cuda')
+    model.set_target_bandwidth(DEPLOY_BANDWIDTH)
+    x = torch.from_numpy(_seg_clip(seed)).cuda()
+    decode_parallel(model, encode_parallel(model, x))                    # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = encode_parallel(model, x)
+    par = decode_parallel(model, frames)[:, :, :x.shape[-1]]
+    torch.cuda.synchronize()
+    par_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_counts()
+    t0 = time.perf_counter()
+    seq_frames = model.encode(x)
+    seq = model.decode(seq_frames)[:, :, :x.shape[-1]]
+    torch.cuda.synchronize()
+    seq_ms = 1e3 * (time.perf_counter() - t0)
+    codes = torch.cat([c for c, _ in frames], -1)
+    share = float((codes == torch.cat([c for c, _ in seq_frames], -1)).float().mean())
+    rel = _rel_norm(par, seq)
+    log(f'segment parallel on {smi}: encodec_48khz, {SECONDS} s stereo at '
+        f'{DEPLOY_BANDWIDTH:g} kbps, {len(frames)} frames ({len(frames) - 1} full segments in '
+        f'one call, the tail in its own): one process {par_ms:.1f} ms, the sequential '
+        f'model {seq_ms:.1f} ms; against the sequential model codes identical {share:.6f}, '
+        f'wav relative error {rel:.3e} (bars {SEG_CODES_SHARE}, {SEG_WAV_REL:g}); launches '
+        f'{launches}')
+    check(launches['rvq_encode'] > 0 and launches['lstm_recurrence'] > 0
+          and launches['resblock'] == 0, f'segment-parallel launches {launches}')
+    check(share >= SEG_CODES_SHARE and rel <= SEG_WAV_REL,
+          'roundtrip_parallel disagrees with the sequential model')
+
+    folder = tmp / 'seg_ranks'
+    folder.mkdir()
+    torch.save({'ckpt': str(ckpt), 'x': x.cpu()}, folder / 'spec.pt')
+    logs = [open(folder / f'rank{r}.log', 'w') for r in range(SEG_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / 'chip_smoke.py'), '--seg-rank', str(r),
+                               '--seg-dir', str(folder)], env=dict(os.environ, OMP_NUM_THREADS='4'),
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(SEG_RANKS)]
+    try:
+        exits = [p.wait(timeout=SEG_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, code in enumerate(exits):
+        if code != 0:
+            log(f'segment parallel: rank {r} failed ({code}); the end of its output:')
+            for line in (folder / f'rank{r}.log').read_text().splitlines()[-40:]:
+                log(f'  {line}')
+    check(exits == [0] * SEG_RANKS, f'a segment-parallel rank failed: exit codes {exits}')
+    res = [torch.load(folder / f'rank{r}.pt', weights_only=True) for r in range(SEG_RANKS)]
+    a, b = res
+    ranks_equal = (all(torch.equal(p, q) for p, q in zip(a['codes'] + a['scales'],
+                                                          b['codes'] + b['scales']))
+                   and torch.equal(a['wav'], b['wav']))
+    rcodes = torch.cat(a['codes'], -1)
+    share1 = float((rcodes == codes.cpu()).float().mean())
+    rel1 = _rel_norm(a['wav'], par.cpu())
+    log(f'segment parallel: {SEG_RANKS} ranks on the one card over gloo, each '
+        f'{(len(frames) - 1) // SEG_RANKS} of the {len(frames) - 1} full segments: ms '
+        f'{[round(r["ms"], 1) for r in res]} (gathers staged through the host), '
+        f'{wall:.1f} s from start to exit; ranks bit-equal {ranks_equal}; against one process '
+        f'codes identical {share1:.6f}, wav relative error {rel1:.3e} (bars {SEG_CODES_SHARE}, '
+        f'{SEG_WAV_REL:g}), bit-equal {torch.equal(a["wav"], par.cpu())}; launches '
+        f'{[r["launches"] for r in res]}')
+    check(ranks_equal, 'the segment-parallel ranks disagree')
+    check(share1 >= SEG_CODES_SHARE and rel1 <= SEG_WAV_REL,
+          'the 2-rank segment-parallel run disagrees with one process')
+    for r in res:
+        for k, v in r['launches'].items():
+            launches[k] += v
+    return launches
+
+
 def run(seed: int, before_dir=None) -> int:
     try:
         import torch
@@ -3820,8 +4099,10 @@ def run(seed: int, before_dir=None) -> int:
         k2_i8, k3_i8, int8_launches = int8_phase(torch, seed, Path(tmp) / CKPT, gen)
         phase('LM codec')
         k6, lm_launches = lm_codec_phase(torch, seed, Path(tmp))
+        phase('24 kHz artifact')
+        deploy24 = deploy_phase(torch, seed, Path(tmp), Path(tmp) / CKPT, 'encodec_24khz', smi)
     launches = {k: cli_launches[k] + serve_launches[k] + lm_launches[k] + int8_launches[k]
-                for k in CODEC_KERNELS}
+                + deploy24[k] for k in CODEC_KERNELS}
     phase('K4')
     k4_fwd, k4_dx = k4_phase(torch, seed, before=before)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3871,9 +4152,15 @@ def run(seed: int, before_dir=None) -> int:
         serve48_launches = server48_phase(torch, seed, Path(tmp) / CKPT48)
         phase('48 kHz LM codec')
         lm48_launches, lm48_err = lm48_phase(torch, seed, Path(tmp))
+        phase('48 kHz artifact')
+        deploy48 = deploy_phase(torch, seed, Path(tmp), Path(tmp) / CKPT48, 'encodec_48khz',
+                                smi)
+        phase('segment parallel')
+        seg_launches = segment_parallel_phase(torch, seed, Path(tmp), Path(tmp) / CKPT48, smi)
     k6['max_abs_err'] = max(k6['max_abs_err'], float(lm48_err))
     for k in CODEC_KERNELS:
-        launches[k] += cli48_launches[k] + serve48_launches[k] + lm48_launches[k]
+        launches[k] += (cli48_launches[k] + serve48_launches[k] + lm48_launches[k]
+                        + deploy48[k] + seg_launches[k])
     with tempfile.TemporaryDirectory() as tmp:
         phase('48 kHz training')
         train48_launches, _ = training_phase(torch, seed, Path(tmp), 'config_48k_stereo')
@@ -3960,10 +4247,14 @@ def main() -> int:
                              'outputs')
     parser.add_argument('--dp-rank', type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument('--dp-dir', type=Path, default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--seg-rank', type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--seg-dir', type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     try:
         if args.dp_rank is not None:        # a rank of the data-parallel phase
             return dp_rank_main(args.dp_rank, args.dp_dir)
+        if args.seg_rank is not None:       # a rank of the segment-parallel phase
+            return seg_rank_main(args.seg_rank, args.seg_dir)
         return run(args.seed, args.before)
     except (Exception, SystemExit) as e:   # any phase's failure fails the run
         traceback.print_exc()

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.custom import no_grad
 from ..quantization.vq import ResidualVectorQuantizer
 from ..utils import check_checksum, linear_overlap_add
 from .seanet import SEANetDecoder, SEANetEncoder
@@ -97,7 +98,7 @@ class EncodecModel(nn.Module):
         if x.dim() != 3 or not 0 < x.shape[1] <= 2:
             raise ValueError(f'expected wav [B, C, T] with 1 or 2 channels, got {tuple(x.shape)}')
 
-    @torch.no_grad()
+    @no_grad
     def encode(self, x: torch.Tensor) -> List[EncodedFrame]:
         """``[B, C, T]`` wav → one frame ``(codes [B, K, T'], scale [B, 1] or
         None)`` a segment (one for an unsegmented model)."""
@@ -116,7 +117,7 @@ class EncodecModel(nn.Module):
                                       self.bandwidth)                  # [K, B, T']
         return codes.transpose(0, 1), scale
 
-    @torch.no_grad()
+    @no_grad
     def decode(self, encoded_frames: List[EncodedFrame]) -> torch.Tensor:
         """Frames → ``[B, C, T]`` wav; segments are overlap-added."""
         if self.segment_length is None:
@@ -126,7 +127,7 @@ class EncodecModel(nn.Module):
         return linear_overlap_add([self._decode_frame(f) for f in encoded_frames],
                                   self.segment_stride)
 
-    @torch.no_grad()
+    @no_grad
     def encode_segmajor(self, x: torch.Tensor) -> List[EncodedFrame]:
         """:meth:`encode` with every full-length segment folded into the batch
         axis (``[B, C, T]`` → ``[B·S, C, L]``, one encoder call), and the
@@ -156,7 +157,7 @@ class EncodecModel(nn.Module):
                    if o + L > length]
         return frames
 
-    @torch.no_grad()
+    @no_grad
     def decode_segmajor(self, encoded_frames: List[EncodedFrame]) -> torch.Tensor:
         """:meth:`decode` with every run of frames of one code length decoded
         in one batched call; frame order is kept for the overlap-add."""

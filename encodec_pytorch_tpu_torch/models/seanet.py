@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import resblock_kernel
+from ..ops import custom, resblock_kernel
 from ..ops.conv import SConv1d, SConvTranspose1d
 from ..ops.lstm import SLSTM
 
@@ -86,19 +86,25 @@ class SEANetResnetBlock(nn.Module):
         """``(k1, b1, k2, b2, ks, bs)`` with weight norm applied, in K3's
         layout; for an int8 block ``(k1_q8, s1, b1, k2_q8, s2, b2, ks_q8, ss,
         bs)``, the int8 weights with their scales. Cached until a parameter
-        or buffer is replaced, moved or changed in place."""
+        or buffer is replaced, moved or changed in place; computed in the
+        traced program while the model is traced."""
+        if custom.tracing():
+            return self._weights()
         key = tuple((t.data_ptr(), t._version) for c in self._convs
                     for t in (*c._parameters.values(), *c._buffers.values()))
         if self._fused is None or self._fused[0] != key:
-            with torch.no_grad():
-                weights = []
-                for c in self._convs:
-                    if c.int8:
-                        weights += [c.weight_q8.contiguous(), c.weight_scale, c.bias.detach()]
-                    else:
-                        weights += [c.kernel().contiguous(), c.bias.detach()]
-            self._fused = (key, tuple(weights))
+            self._fused = (key, self._weights())
         return self._fused[1]
+
+    @custom.no_grad
+    def _weights(self) -> tuple:
+        weights = []
+        for c in self._convs:
+            if c.int8:
+                weights += [c.weight_q8.contiguous(), c.weight_scale, c.bias.detach()]
+            else:
+                weights += [c.kernel().contiguous(), c.bias.detach()]
+        return tuple(weights)
 
     def takes_fused(self) -> bool:
         """Whether the block runs as one fused call (K3, or its plain version
@@ -108,12 +114,19 @@ class SEANetResnetBlock(nn.Module):
                                  or self._convs[0].dequant_dtype == torch.float32)
 
     def takes_kernel(self, device_type: str) -> bool:
-        """Whether a call on ``device_type`` in the current grad mode runs K3."""
-        return self.takes_fused() and device_type == 'cuda' and not torch.is_grad_enabled()
+        """Whether a call on ``device_type`` in the current grad mode runs K3
+        (on any device while the model is traced: the ``encodec::resblock``
+        operator, ``ops/custom.py``)."""
+        return (self.takes_fused() and not torch.is_grad_enabled()
+                and (device_type == 'cuda' or (custom.tracing() and not self.int8)))
 
     def fused_call(self, x: torch.Tensor, **kwargs):
         """The fused block on ``x`` (K3 on CUDA, its int8-weight entry for an
-        int8 block); ``kwargs`` go to the kernel's wrapper."""
+        int8 block, the ``encodec::resblock`` operator while traced);
+        ``kwargs`` go to the kernel's wrapper."""
+        if custom.tracing() and not self.int8 and not kwargs:
+            return torch.ops.encodec.resblock(x, *self.fused_weights(), self.dilation,
+                                              self.causal, self.pad_mode)
         fn = resblock_kernel.resblock_int8 if self.int8 else resblock_kernel.resblock
         kw = dict(dilation=self.dilation, causal=self.causal, pad_mode=self.pad_mode)
         return fn(x, *self.fused_weights(), **dict(kw, **kwargs))

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import disc_conv_kernel, disc_im2col_kernel
+from . import custom, disc_conv_kernel, disc_im2col_kernel
 from .int8 import dequantize_int8, quantize_int8
 from .pad import get_extra_padding_for_conv1d, pad1d, unpad1d
 
@@ -135,8 +135,15 @@ def _output_norm(norm: str, channels: int) -> Optional[nn.GroupNorm]:
 
 
 def _apply_norm(module: Optional[nn.GroupNorm], y: torch.Tensor) -> torch.Tensor:
-    """``module(y)`` in f32, cast back to y's dtype."""
-    return y if module is None else module(y.float()).to(y.dtype)
+    """``module(y)`` in f32, cast back to y's dtype (the same call as the
+    ``encodec::group_norm`` operator while traced without gradients,
+    ``ops/custom.py``)."""
+    if module is None:
+        return y
+    if custom.tracing() and not torch.is_grad_enabled():
+        return torch.ops.encodec.group_norm(y.float(), module.weight, module.bias,
+                                            module.eps).to(y.dtype)
+    return module(y.float()).to(y.dtype)
 
 
 def _biased(conv, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, **kwargs) -> torch.Tensor:

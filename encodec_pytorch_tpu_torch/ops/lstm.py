@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from . import lstm_kernel
+from . import custom, lstm_kernel
 from .int8 import dequantize_int8, quantize_int8
 
 
@@ -132,10 +132,14 @@ class _Recurrence(torch.autograd.Function):
 def recurrence(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """Hidden states ``[T, B, H]``: the plain loop (and its autograd) for CPU
     tensors; kernel K2 for CUDA tensors, through :class:`_Recurrence` when a
-    gradient is needed."""
+    gradient is needed; the ``encodec::lstm_recurrence`` operator when traced
+    without one (``ops/custom.py``)."""
+    needs_grad = torch.is_grad_enabled() and (xp.requires_grad or w_hh.requires_grad)
+    if custom.tracing() and not needs_grad:
+        return torch.ops.encodec.lstm_recurrence(xp, w_hh)
     if xp.device.type == 'cpu':
         return lstm_kernel.lstm_recurrence_reference(xp, w_hh)[0]
-    if torch.is_grad_enabled() and (xp.requires_grad or w_hh.requires_grad):
+    if needs_grad:
         return _Recurrence.apply(xp, w_hh)
     return lstm_kernel.lstm_recurrence(xp, w_hh)[0]
 

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import rvq_kernel
+from ..ops import custom, rvq_kernel
 from ..parallel.mesh import DataParallel
 
 
@@ -82,8 +82,12 @@ class ResidualVectorQuantization(nn.Module):
         ``[n_q, bins, dim]``, and their squared norms ``[n_q, bins]``. Cached
         per ``n_q`` until a codebook is replaced, moved or changed in place
         (an EMA update, :meth:`set_states`, ``load_state_dict``); treat them
-        as read-only."""
+        as read-only. While the model is traced (fake tensors have no
+        storage to key on) they are computed in the traced program instead."""
         bufs = [layer._codebook.embed for layer in self.layers[:n_q]]
+        if custom.tracing():
+            embed = torch.stack(bufs)
+            return embed, rvq_kernel.codebook_sq_norms(embed)
         key = tuple((b.data_ptr(), b._version) for b in bufs)
         hit = self._tables.get(n_q)
         if hit is None or hit[0] != key:
@@ -142,8 +146,12 @@ def rvq_encode(embed: torch.Tensor, x: torch.Tensor,
 
     ``embed [K, N, D]``, ``x [B, T, D]`` (any strides) → codes ``[K, B, T]``
     int32. ``esq``: the codebooks' squared norms, when the caller caches them
-    (:meth:`ResidualVectorQuantization.tables`).
+    (:meth:`ResidualVectorQuantization.tables`). While tracing, the
+    ``encodec::rvq_encode`` operator (``ops/custom.py``).
     """
+    if custom.tracing():
+        return torch.ops.encodec.rvq_encode(
+            x, embed, rvq_kernel.codebook_sq_norms(embed) if esq is None else esq)
     return rvq_kernel.rvq_encode(x, embed.contiguous(), esq)
 
 

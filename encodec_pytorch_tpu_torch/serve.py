@@ -11,7 +11,8 @@ Port of ``encodec_pytorch_tpu/serve.py``:
   by default (``EncodecModel.encode_segmajor``/``decode_segmajor``: the full
   segments of a batch in one call), and a normalizing one carries a scale a
   frame beside its codes.
-- :class:`CodecServer` — a thread-safe front over a LiveCodec: callers block on
+- :class:`CodecServer` — a thread-safe front over a LiveCodec (or a
+  ``deploy.DeployedCodec``): callers block on
   ``roundtrip``/``encode``/``decode`` (or get a Future from ``submit``); one
   worker thread owns the device, coalesces compatible queued requests (same
   kind, bandwidth and shape, after optional length bucketing) into one batch,
@@ -33,9 +34,10 @@ each call dequantizes them in f32, even on a bf16 model, whose layers then
 cast, as the JAX ``LiveCodec`` dequantizes inside its programs; on CUDA the
 blocks and the LSTM read the int8 weights in kernels K3 and K2. A
 ``CodecServer`` over either serves the same; a ``StreamingServer`` takes the
-folded or int8 model itself (``prepare.quantize_weights``). Not ported yet:
-deployed artifacts (``deploy.py``); they raise ``NotImplementedError``. The
-streaming server takes causal, unnormalized, unsegmented models only
+folded or int8 model itself (``prepare.quantize_weights``). A ``CodecServer``
+also serves a deployed artifact (``deploy.DeployedCodec``, loaded by the
+caller with ``DeployedCodec.load(path)``), which has LiveCodec's interface.
+The streaming server takes causal, unnormalized, unsegmented models only
 (``streaming.py``), as the JAX package's does.
 """
 
@@ -225,7 +227,8 @@ class _Request:
 
 
 class CodecServer:
-    """Dynamic micro-batching server over a :class:`LiveCodec`.
+    """Dynamic micro-batching server over a :class:`LiveCodec` or a
+    ``deploy.DeployedCodec``.
 
     - ``max_batch``: hard cap on items per dispatch.
     - ``max_wait_ms``: after the first request of a batch arrives, how long to
@@ -249,8 +252,9 @@ class CodecServer:
                  bucket_sizes: Sequence[int] = (1, 2, 4, 8, 16, 32),
                  length_buckets: Optional[Sequence[int]] = None):
         if isinstance(backend, (str, os.PathLike)):
-            raise NotImplementedError('deployed artifacts (deploy.py) are not ported yet; '
-                                      'serve a LiveCodec')
+            raise TypeError(f'CodecServer takes a backend, not the path {str(backend)!r}: '
+                            'load an artifact with deploy.DeployedCodec.load(path) and '
+                            'serve that')
         self.backend = backend
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3

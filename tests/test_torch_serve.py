@@ -96,7 +96,7 @@ def test_live_codec_and_refusals(live):
                                   prepare.quantized_call(live8.model, torch.from_numpy(x)).numpy())
     with pytest.raises(ValueError, match="'int8'"):
         LiveCodec(model, weights='int4', device='cpu')
-    with pytest.raises(NotImplementedError, match='not ported yet'):
+    with pytest.raises(TypeError, match='DeployedCodec.load'):
         CodecServer('codec.ecdz')
     with pytest.raises(ValueError, match='move it'):
         LiveCodec(model, device='meta')
