@@ -116,9 +116,14 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    under ``torch.cuda.set_sync_debug_mode('error')``; K6 at the main path's
    pdfs against its plain version and the C++ coder: bytes and CDFs equal,
    a decode step's time by CUDA events over 750 launches and on the device
-   (``device_ms``), a 750-step encode launch (the codec encodes 256 steps
-   a launch), both plain versions'
-   times, the bound; the LM step's ms.
+   (``device_ms``), the host ms a decode call costs (750 calls queued with
+   no sync), the device time of an empty launch of the decode's
+   configuration (the latency floor), a 750-step encode call on a fresh
+   state and zeroed buffer from a ring (the codec encodes 256 steps a
+   call), both plain versions' times, the bound; then the same at 24 kbps'
+   K 32 (pdfs from the seeded LM's step on seeded codes): bytes equal to
+   the host coder's, the decode exact, a decode step's and a 750-step
+   encode's times; the LM step's ms.
 6d. Entropy-LM training: ``lm_train_cli`` in process at its defaults (dim
    200, 5 layers, 8 heads, past_context 262, batch 8 x 72000, lr 3e-4) on
    phase 3's seeded ``encodec_24khz`` at 6 kbps (n_q 8) and a CSV of 64
@@ -141,8 +146,10 @@ to the CPU. Phases, in the order they run, each of which fails the run:
    symbols, stall decisions and states); push and pull ms (p50, p99) beside
    the 13.33 ms frame period; one host sync a frame under torch's sync debug
    mode (one a ``push_frame``, from the card or from numpy, and one a
-   ``pull_frame``, none a ``push_bytes``); a stall-mode call's time by CUDA
-   events and on the device, the plain version's, the bound.
+   ``pull_frame``, none a ``push_bytes``); a stall-mode call that decodes
+   and one that stalls, each on its own copy of the state from a ring (no
+   copy in the timing), by CUDA events and on the device, the state copy
+   alone, the plain version's time, the bound.
 6g. ``FusedLmCoder(kv_cache=False)`` on the card: the 10 s round trip exact,
    encode and decode ms beside the ``kv_cache=True`` coder's.
 6h. Seeded full-width 24 kHz models with ``layer_norm`` and ``spectral_norm``
@@ -340,7 +347,11 @@ checkout's K1, K3, K5 and K4 bf16 on the same inputs: its time beside the
 kernel's (K4 bf16 in turns, parent, this tree, this tree, parent, and also
 on the device), and whether the codes and outputs are bit-equal to it (for
 K5, how far they differ; for K4 bf16, the share of bit-equal outputs);
-phases 7 and 11 hold K4's f32 outputs bit-equal to that checkout's.
+phases 7 and 11 hold K4's f32 outputs bit-equal to that checkout's; phases
+6b and 6f time its K6 in turns beside this tree's (parent, this tree, this
+tree, parent; events and device time) at the same calls: the decode step,
+the host ms a call, the 750-step encode, the K 32 lines and the stall-mode
+calls, and hold its decode to the same symbols.
 
 Output: one line per measurement (each phase's start with the seconds since
 the script started), then a JSON line with each kernel's numbers (launches:
@@ -496,6 +507,80 @@ def device_ms(torch, fn, runs=20, tries=3):
             return start.elapsed_time(end) / runs
         cycles *= 4
     return None
+
+
+def host_ms(torch, fn, calls: int) -> float:
+    """Host milliseconds a call to queue ``calls`` calls (``fn`` makes them
+    all), by the host clock with no sync inside: the wrappers' cost."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+class FreshRing:
+    """``size`` copies of the tensors a timed call changes in place (a
+    coder's state, its bit buffer), so that every call of a timed run starts
+    from the same values with no copy inside the timing: :meth:`refresh`
+    before each measurement, :meth:`take` in each call (an IndexError past
+    the ring)."""
+
+    def __init__(self, size: int, *tensors):
+        self.tensors = tensors
+        self.rings = [t.unsqueeze(0).repeat(size, *([1] * t.dim())) for t in tensors]
+        self.views = [list(r.unbind(0)) for r in self.rings]
+        self.i = 0
+
+    def refresh(self):
+        for ring, t in zip(self.rings, self.tensors):
+            ring.copy_(t.expand_as(ring))
+        self.i = 0
+
+    def take(self) -> list:
+        out = [v[self.i] for v in self.views]
+        self.i += 1
+        return out
+
+
+def timed_turns(torch, calls: dict, runs: int, warmup: int = 3, refresh=None,
+                per: int = 1, device_runs=None) -> dict:
+    """CUDA-event ms (median of ``runs``) and device ms (``device_ms``) of
+    each call of ``calls`` (``'new'``, and ``'before'``: the same call into
+    another checkout's kernel), in turns before, new, new, before, each the
+    mean of its two turns, over ``per`` launches a call; ``refresh`` before
+    each measurement, outside it (``device_runs`` calls queued for the device
+    time, ``runs`` by default) → {'ms', 'device_ms', 'before_ms',
+    'before_device_ms'}."""
+    order = ['before', 'new', 'new', 'before'] if calls.get('before') else ['new']
+    events, device = {k: [] for k in order}, {k: [] for k in order}
+    for k in order:
+        if refresh is not None:
+            refresh()
+        events[k].append(cuda_ms(torch, calls[k], runs=runs, warmup=warmup) / per)
+        if refresh is not None:
+            refresh()
+        d = device_ms(torch, calls[k], runs=device_runs or runs)
+        if d is not None:
+            device[k].append(d / per)
+    out = {}
+    for k in events:
+        prefix = '' if k == 'new' else 'before_'
+        out[f'{prefix}ms'] = statistics.mean(events[k])
+        out[f'{prefix}device_ms'] = statistics.mean(device[k]) if device[k] else None
+    return out
+
+
+def fmt_turns(t: dict, unit: str = 'ms', scale: float = 1.0) -> str:
+    """'a unit by CUDA events, b on the device' of a :func:`timed_turns`
+    result, with the earlier checkout's beside it when it was timed."""
+    def one(prefix):
+        dev = t[f'{prefix}device_ms']
+        dev = 'not measured' if dev is None else f'{dev * scale:.4f} {unit}'
+        return f'{t[f"{prefix}ms"] * scale:.4f} {unit} by CUDA events, {dev} on the device'
+    return one('') + (f' (the earlier kernel, --before, in turns: {one("before_")})'
+                      if 'before_ms' in t else '')
 
 
 def json_safe(v):
@@ -821,7 +906,7 @@ def load_before(path: Path, package: str = 'before_port'):
     spec.loader.exec_module(module)
     ops = importlib.import_module(f'{package}.ops')
     for name in ('_build', 'rvq_kernel', 'resblock_kernel', 'disc_im2col_kernel',
-                 'disc_conv_kernel'):
+                 'disc_conv_kernel', 'lm_coder_kernel'):
         importlib.import_module(f'{package}.ops.{name}')
     return ops
 
@@ -2587,13 +2672,14 @@ def read_lm_frames(data: bytes, K: int, lengths, decode):
     return meta, frames
 
 
-def lm_codec_phase(torch, seed, tmp: Path):
+def lm_codec_phase(torch, seed, tmp: Path, before=None):
     """LM entropy coding at full width: ``cli -l`` on a 10 s clip at 6 kbps
     through each route (the on-device coder, ``--lm_host`` on the card,
     ``--lm_backend torch``), then the LM on the card against the CPU, no
     host sync inside the step loops, and K6 against its plain version and
-    the host coder at the main path's pdfs. Returns K6's summary and the
-    kernels' launches of the fused route."""
+    the host coder at the main path's pdfs, timed (with ``before``: beside
+    the other checkout's K6, in turns), also at K 32. Returns K6's summary
+    and the kernels' launches of the fused route."""
     from encodec_pytorch_tpu_torch import cli
     from encodec_pytorch_tpu_torch import compress as C
     from encodec_pytorch_tpu_torch.bitstream import fused, native
@@ -2746,12 +2832,14 @@ def lm_codec_phase(torch, seed, tmp: Path):
     raw[:len(stream)] = np.frombuffer(stream, np.uint8)
     bits_in = torch.from_numpy(raw).cuda()
 
+    steps_pdfs = pdfs.split(1)      # each step's [1, K, card] view, as the codec has them
+
     def decode_all(fn, steps):
         coder_state = k6.init_state('cuda')
         out = torch.zeros(steps, K, dtype=torch.int32, device='cuda')
         b = bits_in.clone()
-        for t in range(steps):
-            fn(pdfs[t:t + 1], out[t:t + 1], coder_state, b, decode=True, n_bits_in=8 * len(stream))
+        for t, row in enumerate(out.split(1)):
+            fn(steps_pdfs[t], row, coder_state, b, decode=True, n_bits_in=8 * len(stream))
         return out, coder_state
 
     out, st = decode_all(k6.lm_coder, T)
@@ -2777,36 +2865,112 @@ def lm_codec_phase(torch, seed, tmp: Path):
           f'K6 bytes differ: kernel {len(stream)}, plain {len(plain_stream)}, '
           f'host {len(host_stream)}')
 
-    events_ms = cuda_ms(torch, lambda: decode_all(k6.lm_coder, T), runs=3, warmup=1) / T
-    dev_ms = device_ms(torch, lambda: decode_all(k6.lm_coder, T), runs=2)
-    dev_ms = None if dev_ms is None else dev_ms / T
-    enc_state, enc_buf = k6.init_state('cuda'), torch.zeros_like(bits_in)
-
-    def encode_launch():     # the launch alone, on a fresh state and a zeroed buffer
-        enc_state.copy_(k6.init_state('cuda'))
-        enc_buf.zero_()
-        k6.lm_coder(pdfs, syms, enc_state, enc_buf, decode=False, finish=True)
-
-    enc_ms = cuda_ms(torch, encode_launch, runs=5, warmup=1)
-    enc_dev_ms = device_ms(torch, encode_launch, runs=3)
+    fns = {'new': k6.lm_coder}
+    if before is not None:
+        fns['before'] = before.lm_coder_kernel.lm_coder
+        old, _ = decode_all(fns['before'], T)
+        check(torch.equal(old.cpu(), syms.cpu()), 'the earlier K6 decodes other symbols')
+    dec = timed_turns(torch, {k: (lambda f=f: decode_all(f, T)) for k, f in fns.items()},
+                      runs=3, warmup=1, per=T, device_runs=1)
+    host = {k: host_ms(torch, lambda f=f: decode_all(f, T), T) for k, f in fns.items()}
+    # the encode of all T steps in one call, each on a fresh state and a
+    # zeroed buffer taken from a ring (no copy in the timing)
+    enc_ring = FreshRing(24, k6.init_state('cuda'), torch.zeros_like(bits_in))
+    enc = timed_turns(torch, {k: (lambda f=f: f(pdfs, syms, *enc_ring.take(), False, 0, True))
+                              for k, f in fns.items()}, runs=5, warmup=1, refresh=enc_ring.refresh)
+    floor = timed_turns(torch, {'new': lambda: k6.lm_coder_floor(1, K, 1024)}, runs=50, warmup=5)
+    # the CDF mode over the T steps' pdfs (the checks' build)
+    builds = {'new': k6.build_cdf}
+    if before is not None:
+        builds['before'] = before.lm_coder_kernel.build_cdf
+        check(torch.equal(builds['before'](pdfs), cdf_k.int()),
+              'the earlier K6 builds other CDFs')
+    cdf_t = timed_turns(torch, {k: (lambda f=f: f(pdfs)) for k, f in builds.items()}, runs=5,
+                        warmup=1)
     bits_step = n_bits / T
     step_bytes = K * 1024 * 4 + K * 4 + 2 * 8 * k6.STATE_SIZE + bits_step / 8
     b_ms, b_by = bound_ms(7 * K * 1024, step_bytes)
     enc_b_ms, enc_b_by = bound_ms(7 * K * 1024 * T, T * step_bytes)
     log(f'K6 (K {K}, card 1024, T {T}): bytes equal kernel = plain = host coder ({len(stream)} B, '
         f'{bits_step:.2f} bits a step); CDFs equal (max |d| {err}); decode a step: '
-        f'{events_ms * 1e3:.2f} us by CUDA events over {T} launches (device '
-        f'{fmt_ms(None if dev_ms is None else dev_ms)}), plain {plain_decode_ms:.3f} ms, bound '
-        f'{b_ms * 1e3:.4f} us ({b_by}); encode of all {T} steps in one launch {enc_ms:.4f} ms '
-        f'(device {fmt_ms(enc_dev_ms)}), plain {plain_encode_ms:.1f} ms, bound '
-        f'{enc_b_ms:.5f} ms ({enc_b_by})')
+        f'{fmt_turns(dec, "us", 1e3)} ({T} launches); host ms a call queued without a sync '
+        f'{host}; an empty launch of the decode configuration {fmt_turns(floor, "us", 1e3)}; '
+        f'plain {plain_decode_ms:.3f} ms, bound {b_ms * 1e3:.4f} us ({b_by}); encode of all {T} '
+        f'steps in one call {fmt_turns(enc)}, plain {plain_encode_ms:.1f} ms, bound '
+        f'{enc_b_ms:.5f} ms ({enc_b_by}); CDF mode over the {T} steps {fmt_turns(cdf_t)}')
+    k32 = k6_k32_lines(torch, k6, fns, coder, T)
     log(f'LM step on the card (kv_lm_step, {K} codebooks): {step_ms:.4f} ms; fused decode '
         f'{decode_step_ms:.4f} ms a step (LM step + K6, host clock)')
-    summary = dict(max_abs_err=float(err), ms=events_ms, device_ms=dev_ms, plain_ms=plain_decode_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[1, K, 1024],
-                   encode_ms=enc_ms, encode_device_ms=enc_dev_ms, encode_plain_ms=plain_encode_ms,
-                   encode_bound_ms=enc_b_ms, lm_step_ms=step_ms, fused_decode_step_ms=decode_step_ms)
+    summary = dict(max_abs_err=float(err), ms=dec['ms'], device_ms=dec['device_ms'],
+                   plain_ms=plain_decode_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   shape=[1, K, 1024], host_ms=host['new'], floor_device_ms=floor['device_ms'],
+                   encode_ms=enc['ms'], encode_device_ms=enc['device_ms'],
+                   encode_plain_ms=plain_encode_ms, encode_bound_ms=enc_b_ms, k32=k32, cdf=cdf_t,
+                   lm_step_ms=step_ms, fused_decode_step_ms=decode_step_ms)
+    if before is not None:
+        summary.update(before_ms=dec['before_ms'], before_device_ms=dec['before_device_ms'],
+                       before_host_ms=host['before'], encode_before_ms=enc['before_ms'],
+                       encode_before_device_ms=enc['before_device_ms'])
     return summary, fused_launches
+
+
+def k6_k32_lines(torch, k6, fns: dict, coder, T: int) -> dict:
+    """K6 at 24 kbps' K 32 (card 1024, T steps): pdfs from the seeded LM's
+    step on seeded codes, the encode of the T steps in one call against the
+    host coder's bytes, the decode a launch a step back to the codes, then
+    both timed (each call in ``fns``, in turns) by CUDA events and on the
+    device."""
+    from encodec_pytorch_tpu_torch.bitstream import fused, native
+    K = 32
+    rng = np.random.default_rng(3232)
+    codes = rng.integers(0, 1024, (T, K))
+    inputs = torch.zeros(T, K, dtype=torch.int64, device='cuda')
+    inputs[1:] = 1 + torch.from_numpy(codes[:-1]).cuda()
+    pdfs = torch.empty(T, K, 1024, device='cuda')
+    state = fused.kv_init_state(coder.weights)
+    for t in range(T):
+        p, state = fused.kv_lm_step(coder.weights, inputs[t], state)
+        pdfs[t].copy_(p)
+    syms = torch.from_numpy(codes.astype(np.int32)).cuda()
+    cap = k6.stream_bytes(k6.bits_capacity(K * T))
+    enc = native.NativeAcEncoder(24)
+    enc.push_batch(codes.reshape(-1), native.build_cdf_batch(pdfs.cpu().numpy().reshape(-1, 1024)))
+    host_stream = enc.finish()
+    out = {}
+    for name, fn in fns.items():
+        st, buf = k6.init_state('cuda'), torch.zeros(cap, dtype=torch.uint8, device='cuda')
+        fn(pdfs, syms, st, buf, decode=False, finish=True)
+        got = buf[:k6.stream_bytes(int(st[k6.BIT_POS]))].cpu().numpy().tobytes()
+        check(got == host_stream, f'K6 ({name}) at K 32: bytes differ from the host coder\'s')
+    raw = np.zeros(cap, np.uint8)
+    raw[:len(host_stream)] = np.frombuffer(host_stream, np.uint8)
+    bits_in = torch.from_numpy(raw).cuda()
+
+    steps_pdfs = pdfs.split(1)
+
+    def decode_all(fn):
+        st = k6.init_state('cuda')
+        o = torch.zeros(T, K, dtype=torch.int32, device='cuda')
+        for t, row in enumerate(o.split(1)):
+            fn(steps_pdfs[t], row, st, bits_in, decode=True, n_bits_in=8 * len(host_stream))
+        return o
+
+    for name, fn in fns.items():
+        check(torch.equal(decode_all(fn).cpu(), syms.cpu()),
+              f'K6 ({name}) at K 32: the decode differs from the codes')
+    dec = timed_turns(torch, {k: (lambda f=f: decode_all(f)) for k, f in fns.items()}, runs=3,
+                      warmup=1, per=T, device_runs=1)
+    ring = FreshRing(24, k6.init_state('cuda'), torch.zeros(cap, dtype=torch.uint8,
+                                                            device='cuda'))
+    encode = timed_turns(torch, {k: (lambda f=f: f(pdfs, syms, *ring.take(), False, 0, True))
+                                 for k, f in fns.items()}, runs=5, warmup=1,
+                         refresh=ring.refresh)
+    b_ms, b_by = bound_ms(7 * K * 1024, K * 1024 * 4 + K * 4 + 128)
+    log(f'K6 at K 32 (card 1024, T {T}, {8 * len(host_stream) / T:.2f} bits a step): bytes '
+        f'equal the host coder\'s, decode exact; decode a step {fmt_turns(dec, "us", 1e3)}; '
+        f'encode of all {T} steps in one call {fmt_turns(encode)}; bound {b_ms * 1e3:.4f} us a '
+        f'step ({b_by})')
+    return dict(decode=dec, encode=encode, bound_ms=b_ms, bytes=len(host_stream))
 
 
 def k6_decode_steps(torch, k6, fn, pdfs, payload: bytes):
@@ -3100,10 +3264,12 @@ def trained_lm_cli_phase(torch, seed, tmp: Path, lm_path: Path) -> dict:
     return out
 
 
-def lm_stream_phase(torch, seed, lm_path: Path, codes: np.ndarray) -> dict:
+def lm_stream_phase(torch, seed, lm_path: Path, codes: np.ndarray, before=None) -> dict:
     """Phase 6f: the streaming LM coder on the card with the trained LM, the
     held-out clip's frames pushed one at a time and the bytes delivered in
-    seeded bursts. Returns K6's stall mode's summary and launches."""
+    seeded bursts. Returns K6's stall mode's summary and launches (with
+    ``before``, its calls also timed in the other checkout's K6, in
+    turns)."""
     from encodec_pytorch_tpu_torch.bitstream import fused
     from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
     from encodec_pytorch_tpu_torch.train.lm_trainer import load_lm_checkpoint
@@ -3189,16 +3355,47 @@ def lm_stream_phase(torch, seed, lm_path: Path, codes: np.ndarray) -> dict:
     run(seed + 73, times=times)
     pct = {k: (_pct(v, 0.5), _pct(v, 0.99)) for k, v in times.items() if v}
     syncs = stream_syncs(torch, fused, lm, frames[:, :SYNC_FRAMES])
-    # a non-stalled call's time, by events and on the device
-    pdfs, syms, state, bits, n, _, _ = next(r for r in record if not r[-1][k6.STALLED])
+    # a call that decodes and one that stalls, each launch on its own copy of
+    # the state from a ring (no copy in the timing), by events and on the
+    # device; the state copy alone beside them
+    fns = {'new': k6.lm_coder}
+    if before is not None:
+        fns['before'] = before.lm_coder_kernel.lm_coder
+    timed = {}
+    for label, want in (('decodes', 0), ('stalls', 1)):
+        pdfs, syms, state, bits, n, _, _ = next(r for r in record if r[-1][k6.STALLED] == want)
+        ring = FreshRing(160, state)
+        timed[label] = timed_turns(
+            torch, {k: (lambda f=f: f(pdfs, syms, *ring.take(), bits, True, n, False, True))
+                    for k, f in fns.items()}, runs=50, warmup=5, refresh=ring.refresh)
     st = state.clone()
-
-    def launch():
-        st.copy_(state)
-        k6.lm_coder(pdfs, syms, st, bits, decode=True, n_bits_in=n, stall=True)
-
-    ms = cuda_ms(torch, launch, runs=50, warmup=5)
-    dev = device_ms(torch, launch, runs=50)
+    copy = timed_turns(torch, {'new': lambda: st.copy_(state)}, runs=50, warmup=5)
+    # push_frame's encode of a frame and the flush, each on a fresh state and
+    # zeroed buffer from a ring, after a check that they write the plain
+    # version's bytes and state
+    pdfs, _, _, _, _, frame, _ = next(r for r in record if not r[-1][k6.STALLED])
+    cap = k6.stream_bytes(k6.bits_capacity(K))
+    short = {}
+    for label, steps, finish in (('push', 1, False), ('flush', 0, True)):
+        start = k6.init_state()
+        if finish:
+            k6.lm_coder_reference(pdfs.cpu(), frame.cpu(), start,
+                                  torch.zeros(cap, dtype=torch.uint8), False)
+        want_state, want_bits = start.clone(), torch.zeros(cap, dtype=torch.uint8)
+        k6.lm_coder_reference(pdfs[:steps].cpu(), frame[:steps].cpu(), want_state, want_bits,
+                              False, finish=finish)
+        for name, f in fns.items():
+            got_state, got_bits = start.cuda(), torch.zeros(cap, dtype=torch.uint8, device='cuda')
+            f(pdfs[:steps], frame[:steps], got_state, got_bits, False, 0, finish)
+            check(torch.equal(got_state.cpu(), want_state)
+                  and torch.equal(got_bits.cpu(), want_bits),
+                  f'K6 ({name}): the streaming {label} differs from the plain version')
+        ring = FreshRing(160, start.cuda(), torch.zeros(cap, dtype=torch.uint8, device='cuda'))
+        short[label] = timed_turns(
+            torch, {k: (lambda f=f, n=steps, e=finish: f(pdfs[:n], frame[:n], *ring.take(), False,
+                                                          0, e)) for k, f in fns.items()},
+            runs=50, warmup=5, refresh=ring.refresh)
+    pdfs, syms, state, bits, n, _, _ = next(r for r in record if not r[-1][k6.STALLED])
     t0 = time.perf_counter()
     for _ in range(10):
         k6.lm_coder_reference(pdfs, syms.clone(), state.clone(), bits.clone(), decode=True,
@@ -3222,17 +3419,28 @@ def lm_stream_phase(torch, seed, lm_path: Path, codes: np.ndarray) -> dict:
     check(all(set(syncs[k]) == {1} for k in ('push_frame', 'pull_frame'))
           and set(syncs['push_bytes']) == {0},
           f'the streaming coder does not sync the host once a frame: {syncs}')
-    log(f'K6 stall mode (one frame, K {K}, card {lm.card}): {ms * 1e3:.2f} us by CUDA events '
-        f'(a state copy and the launch), device {fmt_ms(dev)}, plain {plain_ms:.3f} ms, bound '
-        f'{b_ms * 1e3:.4f} us ({b_by})')
+    log(f'K6 stall mode (one frame, K {K}, card {lm.card}), a call on a state from a ring: one '
+        f'that decodes {fmt_turns(timed["decodes"], "us", 1e3)}; one that stalls '
+        f'{fmt_turns(timed["stalls"], "us", 1e3)}; the state copy alone '
+        f'{fmt_turns(copy, "us", 1e3)}; plain {plain_ms:.3f} ms, bound {b_ms * 1e3:.4f} us '
+        f'({b_by}); push_frame\'s encode of a frame {fmt_turns(short["push"], "us", 1e3)}; the '
+        f'flush {fmt_turns(short["flush"], "us", 1e3)} (bytes and state equal the plain '
+        'version\'s)')
     check(diff == {'symbols': 0, 'stalls': 0, 'state': 0} and stalled > 0,
           f'K6 stall mode and its plain version differ: {diff}')
     check(launches > 0, 'the streaming decoder did not run K6 in its stall mode')
-    return dict(launches=launches, summary=dict(
-        max_abs_err=float(diff['state']), ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, shape=[1, K, lm.card], calls=len(record),
-        stalled_calls=stalled, stalls=stalls, push_ms=pct['push'], pull_ms=pct['pull'],
-        stalled_pull_ms=pct.get('stalled'), frame_ms=FRAME_MS))
+    summary = dict(
+        max_abs_err=float(diff['state']), ms=timed['decodes']['ms'],
+        device_ms=timed['decodes']['device_ms'], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=[1, K, lm.card], stalled_call=timed['stalls'],
+        copy_device_ms=copy['device_ms'], push_encode=short['push'], flush=short['flush'],
+        calls=len(record), stalled_calls=stalled,
+        stalls=stalls, push_ms=pct['push'], pull_ms=pct['pull'],
+        stalled_pull_ms=pct.get('stalled'), frame_ms=FRAME_MS)
+    if before is not None:
+        summary.update(before_ms=timed['decodes']['before_ms'],
+                       before_device_ms=timed['decodes']['before_device_ms'])
+    return dict(launches=launches, summary=summary)
 
 
 SYNC_FRAMES = 50
@@ -4596,13 +4804,13 @@ def run(seed: int, before_dir=None) -> int:
         phase('int8 serving')
         k2_i8, k3_i8, int8_launches = int8_phase(torch, seed, Path(tmp) / CKPT, gen)
         phase('LM codec')
-        k6, lm_launches = lm_codec_phase(torch, seed, Path(tmp))
+        k6, lm_launches = lm_codec_phase(torch, seed, Path(tmp), before)
         phase('LM training')
         lm_train = lm_train_phase(torch, seed, Path(tmp))
         phase('trained LM codec')
         held = trained_lm_cli_phase(torch, seed, Path(tmp), lm_train['path'])
         phase('streaming LM coder')
-        stream = lm_stream_phase(torch, seed, lm_train['path'], held['codes'])
+        stream = lm_stream_phase(torch, seed, lm_train['path'], held['codes'], before)
         phase('kv_cache=False LM coder')
         kv_free = kv_free_phase(torch, lm_train['path'], held['codes'])
         phase('conv norms')

@@ -243,6 +243,7 @@ class FusedLmCoder:
         input. Returns (symbols ``[T, K]`` int32, the coder's state)."""
         dev = self.device
         syms = torch.zeros(T, K, dtype=torch.int32, device=dev)
+        rows = syms.split(1)        # each step's [1, K] view, made once
         coder = K6.init_state(dev)
         state = self.init_state()
         indices = torch.zeros(K, dtype=torch.int64, device=dev)
@@ -250,7 +251,7 @@ class FusedLmCoder:
             if t:
                 indices = syms[t - 1] + 1
             pdfs, state = self.step(indices, state)
-            K6.lm_coder(pdfs[None], syms[t:t + 1], coder, bits, decode=True, n_bits_in=n_bits_in)
+            K6.lm_coder(pdfs[None], rows[t], coder, bits, decode=True, n_bits_in=n_bits_in)
         return syms, coder
 
 

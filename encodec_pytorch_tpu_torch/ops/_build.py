@@ -142,7 +142,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.encodec_resblock_config.restype = None
     lib.encodec_resblock_config.argtypes = [i, i, p, p]
     lib.encodec_lm_coder_f32.restype = i
-    lib.encodec_lm_coder_f32.argtypes = [i, p, i, i, i, ctypes.c_float, p, p, p, ll, ll, i, i, p]
+    lib.encodec_lm_coder_f32.argtypes = [i, p, i, i, i, ctypes.c_float, p, p, p, ll, ll, i, p,
+                                         i, p]
+    lib.encodec_lm_coder_floor.restype = i
+    lib.encodec_lm_coder_floor.argtypes = [i, i, i, i, p]
     lib.encodec_cuda_error_string.restype = ctypes.c_char_p
     lib.encodec_cuda_error_string.argtypes = [i]
 

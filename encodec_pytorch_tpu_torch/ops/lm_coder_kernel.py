@@ -36,10 +36,16 @@ stream's length) or read; ``overrun`` is set when decode reads past
 would write past ``cap_bits`` or meets a symbol outside the card (then
 coded as 0): the symbols stay on the device, so they are checked there.
 
-On a CUDA tensor :func:`lm_coder` launches K6 (one CTA, the state in
-registers) and raises on what the kernel does not take; on a CPU tensor it
-runs the plain version, the CDF build in torch float32 ops with an int64
-``cumsum`` and the coder's transitions in Python integers, step by step.
+On a CUDA tensor :func:`lm_coder` launches K6 and raises on what the kernel
+does not take: a decode is one launch (one CTA: warps that build the rows'
+CDFs, a warp that codes each row once it is built); an encode of at most
+:data:`ENCODE_FUSED_ROWS` symbols is one launch, a longer one two (the CDF
+pairs ``(cdf[sym - 1], cdf[sym])`` of every symbol on many CTAs into a
+scratch tensor, then one warp codes them), each wrapper call counted once in
+``lm_coder.launches``. On a CPU tensor it runs the plain version, the CDF
+build in torch float32 ops with an int64 ``cumsum`` (encode: only the pairs,
+:func:`cdf_pairs_reference`) and the coder's transitions in Python integers,
+step by step.
 The decoder's symbol is ``#(current >= low + eff_low[i]) - 1`` over the bins
 (clamped at 0), which on a valid stream is the host decoder's binary-search
 result. :func:`build_cdf` gives the CDFs alone, for checks against the host
@@ -47,7 +53,7 @@ build: on CUDA it is K6 in a mode that writes its CDFs out and codes nothing
 (a launch counted in ``lm_coder.launches``); the codec never calls it.
 """
 
-import ctypes
+import functools
 import math
 
 import numpy as np
@@ -58,12 +64,14 @@ from . import _build
 TOTAL_RANGE_BITS = 24
 ROUNDOFF = 1e-8
 MIN_RANGE = 2
-MAX_CARD = 8192     # the bins of one group of rows in the kernel's shared memory
+MAX_CARD = 8192     # the bins of a row the kernel takes at most
+ENCODE_FUSED_ROWS = 64      # an encode of more symbols takes two launches and a scratch tensor
 LOW, HIGH, CURRENT, MAX_BIT, BIT_POS, OVERRUN, OVERFLOW, STALLED = range(8)
 STATE_SIZE = 8
 ENCODE, DECODE, CDF, STREAM = range(4)     # the kernel's modes
 
 
+@functools.lru_cache(maxsize=None)
 def cdf_scale(card: int) -> float:
     """``float32((1 - alpha) · 2^24)`` with ``alpha = 2 · card / 2^24``."""
     total = 2 ** TOTAL_RANGE_BITS
@@ -78,14 +86,31 @@ def init_state(device=None) -> torch.Tensor:
 
 
 def build_cdf_reference(pdfs: torch.Tensor) -> torch.Tensor:
-    """``[..., card]`` float32 pdfs → quantized CDFs int64, in torch on the
+    """``[..., card]`` float32 pdfs → quantized CDFs as int64, in torch on the
     pdfs' device. The roundoff divides by a tensor: on CUDA a division by a
-    scalar is done as a product with its reciprocal, which rounds otherwise."""
+    scalar is done as a product with its reciprocal, which rounds otherwise.
+    A range converts to int32 as the card (and XLA) convert, saturating, NaN
+    to 0, and the sums wrap at 32 bits as K6's (and the JAX package's) int32
+    scan does; the pdfs of a model (in [0, 1]) reach neither."""
     roundoff = torch.full_like(pdfs, ROUNDOFF)
     q = torch.floor(pdfs / roundoff) * roundoff
     scale = torch.full_like(pdfs, cdf_scale(pdfs.shape[-1]))
-    ranges = torch.floor(scale * q).to(torch.int64) + MIN_RANGE
-    return torch.cumsum(ranges, dim=-1)
+    ranges = torch.floor(scale * q).double().nan_to_num(0.0).clamp(-2 ** 31, 2 ** 31 - 1)
+    cdf = torch.cumsum(ranges.to(torch.int64) + MIN_RANGE, dim=-1)
+    return (cdf + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def cdf_pairs_reference(pdfs: torch.Tensor, syms: torch.Tensor) -> torch.Tensor:
+    """``[..., card]`` float32 pdfs and ``[...]`` symbols → ``[..., 2]`` int64:
+    ``(cdf[sym - 1], cdf[sym])`` of each row's quantized CDF (``cdf[-1] = 0``),
+    what K6's encode reads of a row; a symbol outside the card takes symbol
+    0's pair (the coder codes it as 0 and flags it)."""
+    cdf = build_cdf_reference(pdfs)
+    s = syms.to(device=cdf.device, dtype=torch.int64)
+    s = torch.where((s >= 0) & (s < pdfs.shape[-1]), s, 0)[..., None]
+    high = cdf.gather(-1, s)
+    low = torch.where(s > 0, cdf.gather(-1, (s - 1).clamp(min=0)), 0)
+    return torch.cat([low, high], dim=-1)
 
 
 M64 = (1 << 64) - 1
@@ -132,13 +157,15 @@ def lm_coder_reference(pdfs: torch.Tensor, syms: torch.Tensor, state: torch.Tens
             v = (v << 1) | ((int(buf[pos >> 3]) >> (pos & 7)) & 1 if pos < cap_bits else 0)
         return v
 
+    pairs = None if decode else cdf_pairs_reference(pdfs, syms).cpu().numpy()
     stalled = False
     for s in range(steps):
         if stalled:
             break
-        cdfs = build_cdf_reference(pdfs[s]).cpu().numpy()
-        range_lows = np.concatenate([np.zeros((K, 1), np.int64), cdfs[:, :-1]],
-                                    axis=1).astype(np.uint64)
+        if decode:
+            cdfs = build_cdf_reference(pdfs[s]).cpu().numpy()
+            range_lows = np.concatenate([np.zeros((K, 1), np.int64), cdfs[:, :-1]],
+                                        axis=1).astype(np.uint64)
         for k in range(K):
             n = max(0, TOTAL_RANGE_BITS - _msb((high - low + 1) & M64))
             if stall and bit_pos + n > n_bits_in:
@@ -159,12 +186,12 @@ def lm_coder_reference(pdfs: torch.Tensor, syms: torch.Tensor, state: torch.Tens
                 count = int(np.count_nonzero(np.uint64(current) >= np.uint64(low) + eff_lows))
                 sym = max(count - 1, 0)
                 out[s, k] = sym
+                range_low = int(cdfs[k, sym - 1]) if sym else 0
+                range_high = int(cdfs[k, sym]) - 1
             else:
-                sym = int(out[s, k])
-                if not 0 <= sym < len(cdfs[k]):
-                    overflow, sym = 1, 0
-            range_low = int(cdfs[k, sym - 1]) if sym else 0
-            range_high = int(cdfs[k, sym]) - 1
+                if not 0 <= int(out[s, k]) < pdfs.shape[2]:
+                    overflow = 1
+                range_low, range_high = int(pairs[s, k, 0]), int(pairs[s, k, 1]) - 1
             eff_low = ((((range_low * d) & M64) + _ROUND_UP) & M64) >> TOTAL_RANGE_BITS
             eff_high = ((range_high * d) & M64) >> TOTAL_RANGE_BITS
             new_low, new_high = (low + eff_low) & M64, (low + eff_high) & M64
@@ -189,11 +216,16 @@ def lm_coder_reference(pdfs: torch.Tensor, syms: torch.Tensor, state: torch.Tens
         syms.copy_(torch.from_numpy(out))
 
 
-def _check(pdfs, syms, state, bits) -> None:
+_DTYPES = (torch.float32, torch.int32, torch.int64, torch.uint8)
+
+
+def _refuse(pdfs, syms, state, bits) -> None:
     """Raise the reason a CUDA call of :func:`lm_coder` is refused."""
     device = pdfs.device
-    for name, t, dtype in (('pdfs', pdfs, torch.float32), ('syms', syms, torch.int32),
-                           ('state', state, torch.int64), ('bits', bits, torch.uint8)):
+    if device.type != 'cuda':
+        raise ValueError(f'lm_coder: tensors on {device}; CUDA or the CPU only')
+    for name, t, dtype in zip(('pdfs', 'syms', 'state', 'bits'), (pdfs, syms, state, bits),
+                              _DTYPES):
         if t.device != device:
             raise ValueError(f'lm_coder: {name} on {t.device}, pdfs on {device}')
         if t.dtype != dtype:
@@ -205,9 +237,33 @@ def _check(pdfs, syms, state, bits) -> None:
                          'do not make [steps, K, card] and [steps, K]')
     if not 1 <= pdfs.shape[2] <= MAX_CARD:
         raise ValueError(f'lm_coder: card {pdfs.shape[2]} outside 1..{MAX_CARD}')
-    if state.shape != (STATE_SIZE,) or bits.dim() != 1:
-        raise ValueError(f'lm_coder: state {tuple(state.shape)} / bits {tuple(bits.shape)} '
-                         f'are not [{STATE_SIZE}] / [n]')
+    raise ValueError(f'lm_coder: state {tuple(state.shape)} / bits {tuple(bits.shape)} '
+                     f'are not [{STATE_SIZE}] / [n]')
+
+
+def _accepts(pdfs, syms, state, bits) -> bool:
+    """Whether K6 takes these tensors: one pass, no strings built."""
+    shape = pdfs.shape
+    index = pdfs.get_device()
+    return (pdfs.is_cuda and pdfs.dtype is torch.float32 and syms.dtype is torch.int32
+            and state.dtype is torch.int64 and bits.dtype is torch.uint8
+            and syms.get_device() == index and state.get_device() == index
+            and bits.get_device() == index
+            and pdfs.is_contiguous() and syms.is_contiguous() and state.is_contiguous()
+            and bits.is_contiguous() and len(shape) == 3 and syms.shape == shape[:2]
+            and 1 <= shape[2] <= MAX_CARD and state.shape == _STATE_SHAPE and bits.dim() == 1)
+
+
+_STATE_SHAPE = torch.Size([STATE_SIZE])
+
+
+def _library():
+    return _build._lib or _build.load()
+
+
+def _stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as an address."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def lm_coder(pdfs: torch.Tensor, syms: torch.Tensor, state: torch.Tensor,
@@ -220,23 +276,37 @@ def lm_coder(pdfs: torch.Tensor, syms: torch.Tensor, state: torch.Tensor,
     if pdfs.is_cpu:
         lm_coder_reference(pdfs, syms, state, bits, decode, n_bits_in, finish, stall)
         return
-    _check(pdfs, syms, state, bits)
-    if pdfs.device.type != 'cuda':
-        raise ValueError(f'lm_coder: tensors on {pdfs.device}; CUDA or the CPU only')
+    if not _accepts(pdfs, syms, state, bits):
+        _refuse(pdfs, syms, state, bits)
     steps, K, card = pdfs.shape
     device = pdfs.get_device()
+    scratch = None
+    if not decode and steps * K > ENCODE_FUSED_ROWS:
+        scratch = torch.empty(steps * K * 2, dtype=torch.int32, device=pdfs.device)
     mode = (STREAM if stall else DECODE) if decode else ENCODE
-    rc = _build.load().encodec_lm_coder_f32(
-        mode, pdfs.data_ptr(), steps, K, card, cdf_scale(card),
-        syms.data_ptr(), state.data_ptr(), bits.data_ptr(), 8 * bits.numel(), n_bits_in,
-        int(finish), device, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    _build.check(rc, 'lm_coder kernel')
+    rc = _library().encodec_lm_coder_f32(
+        mode, pdfs.data_ptr(), steps, K, card, cdf_scale(card), syms.data_ptr(),
+        state.data_ptr(), bits.data_ptr(), 8 * bits.numel(), n_bits_in, finish,
+        None if scratch is None else scratch.data_ptr(), device, _stream(device))
+    if rc:
+        _build.check(rc, 'lm_coder kernel')
     lm_coder.launches += 1
     lm_coder.stall_launches += stall
 
 
 lm_coder.launches = 0
 lm_coder.stall_launches = 0     # the launches in the stall mode (also in ``launches``)
+
+
+def lm_coder_floor(steps: int, K: int, card: int, device=None) -> None:
+    """An empty launch with the block and shared memory of K6's decode of
+    ``steps`` x ``K`` symbols of ``card`` bins, on the current stream: its
+    device time is the floor a decode launch of that shape can reach. Not
+    counted in ``lm_coder.launches``."""
+    index = torch.device('cuda' if device is None else device).index
+    index = torch.cuda.current_device() if index is None else index
+    _build.check(_library().encodec_lm_coder_floor(steps, K, card, index, _stream(index)),
+                 'lm_coder floor launch')
 
 
 def build_cdf(pdfs: torch.Tensor) -> torch.Tensor:
@@ -252,9 +322,9 @@ def build_cdf(pdfs: torch.Tensor) -> torch.Tensor:
     flat = pdfs.reshape(-1, card).contiguous()
     out = torch.empty(flat.shape, dtype=torch.int32, device=pdfs.device)
     device = pdfs.get_device()
-    rc = _build.load().encodec_lm_coder_f32(
+    rc = _library().encodec_lm_coder_f32(
         CDF, flat.data_ptr(), 1, flat.shape[0], card, cdf_scale(card), out.data_ptr(), None,
-        None, 0, 0, 0, device, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        None, 0, 0, 0, None, device, _stream(device))
     _build.check(rc, 'lm_coder kernel (CDF mode)')
     lm_coder.launches += 1
     return out.reshape(pdfs.shape)

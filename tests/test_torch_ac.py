@@ -7,7 +7,9 @@ the port's Python coder (``bitstream/ac.py``), its C++ coder
 (``bitstream/native.py``) and the plain version of K6
 (``ops/lm_coder_kernel.py``). Bars: bytes exactly equal; every decoder
 returns the symbols; CDFs bit-equal; a truncated stream ends the host
-decoders (``None``, a short batch) and sets K6's ``overrun``. Cases: random
+decoders (``None``, a short batch) and sets K6's ``overrun``; the CDF pairs
+of K6's encode pass (its plain version) equal the JAX device build gathered
+at the symbols, and its CDFs equal that build's on pdfs outside [0, 1]. Cases: random
 pdfs at card 16, 200 and 1024; skewed pdfs (Dirichlet 0.02) with symbols
 drawn from their tails; one-hot pdfs with the symbols at both edges and on
 the hot bin, and a uniform pdf; K 1, 3 and 8 symbols a step.
@@ -143,6 +145,44 @@ def test_cdf_builds_bit_equal(case):
     np.testing.assert_array_equal(K6.build_cdf(torch.from_numpy(pdfs)).numpy(), ref)
     dev = np.asarray(jax_fused.build_cdf_device(jnp.asarray(pdfs)))
     np.testing.assert_array_equal(dev.astype(np.int64), ref)
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_k6_cdf_pairs_equal_jax_cdf_at_the_symbols(case):
+    """The plain version of K6's encode pass 1, ``(cdf[sym - 1], cdf[sym])``
+    of each row, against the JAX ``build_cdf_device`` gathered at the symbols;
+    a symbol outside the card takes symbol 0's pair."""
+    pdfs, syms = CASES[case]()
+    syms = syms.copy()
+    syms[-1] = pdfs.shape[1]
+    dev = np.asarray(jax_fused.build_cdf_device(jnp.asarray(pdfs))).astype(np.int64)
+    at = np.where(syms < pdfs.shape[1], syms, 0)
+    rows = np.arange(len(syms))
+    want = np.stack([np.where(at > 0, dev[rows, np.maximum(at - 1, 0)], 0), dev[rows, at]], -1)
+    got = K6.cdf_pairs_reference(torch.from_numpy(pdfs)[:, None], torch.from_numpy(syms)[:, None])
+    np.testing.assert_array_equal(got[:, 0].numpy(), want)
+
+
+def test_k6_plain_cdf_equals_jax_outside_0_1():
+    """The plain version of K6's CDF build on pdfs with bins outside [0, 1]
+    (-0.0, negative, above 1, past the int32 range, infinite, NaN) against
+    the JAX ``build_cdf_device``: each range converted to int32 saturating
+    (NaN to 0) and the sums wrapping at 32 bits, as K6 builds them; and its
+    CDF pairs gathered from it."""
+    rng = np.random.default_rng(4)
+    pdfs = rng.dirichlet(np.full(64, 0.25), size=16).astype(np.float32)
+    odd = np.float32([-0.0, -0.25, 1.5, 3.0, 200.0, np.inf, -np.inf, np.nan])
+    for row in pdfs:
+        row[rng.choice(64, 3, replace=False)] = rng.choice(odd, 3)
+    want = np.asarray(jax_fused.build_cdf_device(jnp.asarray(pdfs))).astype(np.int64)
+    got = K6.build_cdf_reference(torch.from_numpy(pdfs)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (want < 0).any() and (np.diff(want, axis=1) <= 0).any()
+    syms = rng.integers(0, 64, 16).astype(np.int32)
+    pairs = K6.cdf_pairs_reference(torch.from_numpy(pdfs), torch.from_numpy(syms)).numpy()
+    rows = np.arange(16)
+    np.testing.assert_array_equal(pairs[:, 1], want[rows, syms])
+    np.testing.assert_array_equal(pairs[:, 0], np.where(syms > 0, want[rows, syms - 1], 0))
 
 
 @pytest.mark.parametrize('case', sorted(CASES))

@@ -49,7 +49,14 @@ plain version's and the C++ host coder's at K 4, 8 and 32 (card 1024), card
 the symbols; its CDFs equal the host build bit for bit; a truncated stream
 sets ``overrun`` and a symbol outside the card ``overflow``; the on-device coder with a small LM on the card round-trips
 codes with no host sync inside either step loop and raises EOFError on a
-truncated stream. The int8-weight entries of K2 and K3 (``prepare.quantize_weights``'s
+truncated stream. K6's stall mode equals its plain version (symbols, the
+whole state, the stall decision) at K 4, 8, 32 and card 16, 1024, 4096 with
+the stream cut to stall at a step's first symbol, in mid-step and never; an
+encode on a buffer rebased as the streaming encoder rebases it (the partial
+byte kept) equals the plain version's, in one launch, in two and as the
+flush alone; encodes in chunks of 1 to 100 steps give one call's bytes;
+many steps decode in one launch whose ring of rows wraps; the wrapper
+refuses other dtypes, devices, shapes and layouts. The int8-weight entries of K2 and K3 (``prepare.quantize_weights``'s
 twin) give the bits of the f32 entries on the dequantized weights and hold
 their plain versions, K3's at every width (C 4, 8, 12 and 36 whose rows break
 TMA's 16-byte rule, and unaligned int8 weights, take the plain loads), and
@@ -1190,3 +1197,248 @@ def test_fused_lm_coder_on_the_card(cuda, monkeypatch):
     np.testing.assert_array_equal(out.t().cpu().numpy(), codes)
     with pytest.raises(EOFError):
         coder.decode(data[:len(data) // 4], 8, 57)
+
+
+def _stream_buffer(data, n_symbols, device):
+    import numpy as np
+
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    buf = np.zeros(k6.stream_bytes(k6.bits_capacity(n_symbols)), np.uint8)
+    buf[:len(data)] = np.frombuffer(data, np.uint8)
+    return torch.from_numpy(buf).to(device)
+
+
+@pytest.mark.parametrize('card', [16, 1024, 4096])
+@pytest.mark.parametrize('K', [4, 8, 32])
+def test_lm_coder_stall_mode_matches_plain(cuda, K, card):
+    """K6's stall mode against its plain version on the same inputs: from the
+    state before each of 4 steps, the stream cut at its start, one bit on,
+    halfway, one bit before its end, at it and past it. The symbols written
+    before a stall, the whole state and the stall decision are equal, and
+    the cuts stall at the first symbol, in mid-step and never."""
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    pdfs, syms = _lm_coder_case(K, card, 4, seed=3 * K + card)
+    data = _lm_host_bytes(pdfs, syms)
+    bits = _stream_buffer(data, syms.size, 'cpu')
+    bits_cuda = bits.to(cuda)
+    p, p_cuda = torch.from_numpy(pdfs), torch.from_numpy(pdfs).to(cuda)
+    state, seen = k6.init_state(), set()
+    for t in range(4):
+        after = state.clone()
+        k6.lm_coder_reference(p[t:t + 1], torch.zeros(1, K, dtype=torch.int32), after, bits,
+                              decode=True, n_bits_in=8 * len(data))
+        start, end = int(state[k6.BIT_POS]), int(after[k6.BIT_POS])
+        for n in sorted({start, start + 1, (start + end) // 2, end - 1, end, end + 1}):
+            got_syms = torch.full((1, K), -1, dtype=torch.int32, device=cuda)
+            got_state = state.to(cuda)
+            k6.lm_coder(p_cuda[t:t + 1], got_syms, got_state, bits_cuda, decode=True,
+                        n_bits_in=n, stall=True)
+            want_syms, want_state = torch.full((1, K), -1, dtype=torch.int32), state.clone()
+            k6.lm_coder_reference(p[t:t + 1], want_syms, want_state, bits, decode=True,
+                                  n_bits_in=n, stall=True)
+            assert torch.equal(got_syms.cpu(), want_syms), (t, n)
+            assert torch.equal(got_state.cpu(), want_state), (t, n)
+            decoded = int((want_syms >= 0).sum())
+            seen.add('never' if not want_state[k6.STALLED] else 'first' if decoded == 0
+                     else 'mid')
+        state = after
+    assert seen == {'first', 'mid', 'never'}
+
+
+@pytest.mark.parametrize('K,steps,finish', [(8, 1, False), (32, 1, False), (32, 3, True),
+                                            (8, 0, True)])
+def test_lm_coder_encode_on_a_rebased_buffer(cuda, K, steps, finish):
+    """An encode on a buffer rebased as ``StreamingLmEncoder.push_frame``
+    rebases it (the cursor restarted at n_bits % 8 != 0, the partial byte
+    kept at the front, the rest zero): one launch for 8 and 32 symbols, two
+    for 96, and the flush alone. Its bytes and state equal the plain
+    version's on the same buffer and state."""
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    pdfs, syms = _lm_coder_case(K, 1024, 8 + steps, seed=K + steps)
+    p, s = torch.from_numpy(pdfs), torch.from_numpy(syms)
+    cap = k6.stream_bytes(8 + k6.bits_capacity(K * max(steps, 1)))
+    for prefix in range(1, 8):
+        state = k6.init_state()
+        bits = torch.zeros(k6.stream_bytes(k6.bits_capacity(K * prefix)), dtype=torch.uint8)
+        k6.lm_coder_reference(p[:prefix], s[:prefix], state, bits, decode=False)
+        n_bits = int(state[k6.BIT_POS])
+        if n_bits % 8:
+            break
+    assert n_bits % 8, 'no prefix ends inside a byte'
+    rebased = torch.zeros(cap, dtype=torch.uint8)
+    rebased[0] = bits[n_bits // 8]
+    state[k6.BIT_POS] = n_bits % 8
+    chunk = slice(prefix, prefix + steps)
+    got_state, got_bits = state.to(cuda), rebased.to(cuda)
+    k6.lm_coder(p[chunk].contiguous().to(cuda), s[chunk].contiguous().to(cuda), got_state,
+                got_bits, decode=False, finish=finish)
+    want_state, want_bits = state.clone(), rebased.clone()
+    k6.lm_coder_reference(p[chunk], s[chunk], want_state, want_bits, decode=False,
+                          finish=finish)
+    assert torch.equal(got_bits.cpu(), want_bits)
+    assert torch.equal(got_state.cpu(), want_state)
+    assert int(want_state[k6.BIT_POS]) > n_bits % 8
+
+
+@pytest.mark.parametrize('chunk', [1, 3, 8, 9, 100])
+def test_lm_coder_encode_in_chunks_gives_one_calls_bytes(cuda, chunk):
+    """200 steps of K 8 encoded in chunks of 1, 3, 8 (64 symbols, one
+    launch), 9 (72, two launches) and 100 steps, the last chunk flushing,
+    give the bytes of one call and of the host coder."""
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    pdfs, syms = _lm_coder_case(8, 1024, 200, seed=11)
+    host = _lm_host_bytes(pdfs, syms)
+    assert _lm_kernel_encode(pdfs, syms, cuda) == host
+    p, s = torch.from_numpy(pdfs).to(cuda), torch.from_numpy(syms).to(cuda)
+    state = k6.init_state(cuda)
+    bits = torch.zeros(k6.stream_bytes(k6.bits_capacity(syms.size)), dtype=torch.uint8,
+                       device=cuda)
+    for t0 in range(0, 200, chunk):
+        k6.lm_coder(p[t0:t0 + chunk], s[t0:t0 + chunk], state, bits, decode=False,
+                    finish=t0 + chunk >= 200)
+    n = int(state[k6.BIT_POS])
+    assert bits[:k6.stream_bytes(n)].cpu().numpy().tobytes() == host
+
+
+@pytest.mark.parametrize('K,card,steps', [(32, 1024, 4), (32, 4096, 3), (8, 8192, 4),
+                                          (3, 200, 30)])
+def test_lm_coder_decodes_many_steps_in_one_launch(cuda, K, card, steps):
+    """All steps decoded in one launch, more rows than the ring's slots (48
+    at card 1024, 12 at 4096, 6 at 8192, 64 at 200) so that the producers
+    reuse slots the coder has released: the symbols, and the state of a
+    launch a step."""
+    import numpy as np
+
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    pdfs, syms = _lm_coder_case(K, card, steps, seed=K * steps + card)
+    data = _lm_host_bytes(pdfs, syms)
+    bits = _stream_buffer(data, syms.size, cuda)
+    p = torch.from_numpy(pdfs).to(cuda)
+    one_state = k6.init_state(cuda)
+    got = torch.zeros(steps, K, dtype=torch.int32, device=cuda)
+    k6.lm_coder(p, got, one_state, bits, decode=True, n_bits_in=8 * len(data))
+    np.testing.assert_array_equal(got.cpu().numpy(), syms)
+    step_state = k6.init_state(cuda)
+    out = torch.zeros(1, K, dtype=torch.int32, device=cuda)
+    for t in range(steps):
+        k6.lm_coder(p[t:t + 1], out, step_state, bits, decode=True, n_bits_in=8 * len(data))
+    assert torch.equal(one_state, step_state)
+
+
+def _lm_off_range_case(kind, K, card, steps, seed):
+    """Inputs that take K6's decoder off its 32-bit narrow step: pdfs [steps,
+    K, card] with every odd step's rows scaled by 0.5 (a CDF ending near
+    2^23, so that stream bits fall past the last symbol's range) and, for
+    ``odd_pdfs``, bins of -0.0, -0.25, 1.5, 3.0 and NaN in every third row (a
+    CDF that does not rise); the stream a buffer of random bytes
+    (``random_bytes``, ``odd_pdfs``) or the plain encode of drawn symbols
+    cut to its first third, ones after it (``cut``: the bits past
+    ``n_bits_in`` are read all the same, and ``overrun`` is set) → (pdfs,
+    bits, n_bits_in)."""
+    import numpy as np
+
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    pdfs, syms = _lm_coder_case(K, card, steps, seed)
+    pdfs[1::2] *= np.float32(0.5)
+    rng = np.random.default_rng(seed + 1)
+    if kind == 'odd_pdfs':
+        odd = np.float32([-0.0, -0.25, 1.5, 3.0, np.nan])
+        for row in pdfs.reshape(-1, card)[::3]:
+            row[rng.choice(card, min(card, 5), replace=False)] = odd[:min(card, 5)]
+    size = k6.stream_bytes(k6.bits_capacity(steps * K))
+    if kind == 'cut':
+        state, bits = k6.init_state(), torch.zeros(size, dtype=torch.uint8)
+        k6.lm_coder_reference(torch.from_numpy(pdfs), torch.from_numpy(syms), state, bits,
+                              decode=False, finish=True)
+        kept = k6.stream_bytes(int(state[k6.BIT_POS])) // 3
+        bits[kept:] = 255
+        return pdfs, bits, 8 * kept
+    return pdfs, torch.from_numpy(rng.integers(0, 256, size, dtype=np.uint8)), 8 * size
+
+
+def _lm_symbols_off_the_narrow_step(pdfs, bits, n_bits_in):
+    """The symbols of a decode whose state or row fails the entry of K6's
+    narrow step (t = current - low < delta = high - low + 1 <= 2^25, and
+    every range of the row in [1, 2^25]), so that the kernel codes them by
+    its wide step: the plain version stepped a symbol at a time."""
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    m64 = (1 << 64) - 1
+    cdf = k6.build_cdf_reference(pdfs)
+    ranges = torch.diff(cdf, dim=-1, prepend=torch.zeros_like(cdf[..., :1]))
+    rises = ((ranges >= 1) & (ranges <= 2 ** 25)).all(-1)
+    state, count = k6.init_state(), 0
+    for s in range(pdfs.shape[0]):
+        for k in range(pdfs.shape[1]):
+            low, high, current = (v & m64 for v in state[:3].tolist())
+            delta, t = (high - low + 1) & m64, (current - low) & m64
+            count += not (bool(rises[s, k]) and 1 <= delta <= 2 ** 25 and t < delta)
+            k6.lm_coder_reference(pdfs[s:s + 1, k:k + 1].contiguous(),
+                                  torch.zeros(1, 1, dtype=torch.int32), state, bits, decode=True,
+                                  n_bits_in=n_bits_in)
+    return count
+
+
+@pytest.mark.parametrize('K,card', [(8, 1024), (3, 200), (4, 4096)])
+@pytest.mark.parametrize('kind', ['random_bytes', 'cut', 'odd_pdfs'])
+def test_lm_coder_wide_step_matches_plain(cuda, kind, K, card):
+    """K6's wide step (the uint64 form a symbol falls back to) against the
+    plain version on inputs that reach it: random bytes, a stream cut short,
+    and pdfs with bins outside [0, 1]. A launch a step, all steps in one
+    launch and the stall mode a launch a step give the plain version's
+    symbols and whole state after every launch; the CDF mode its CDFs."""
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    steps = 10
+    pdfs, bits, n_in = _lm_off_range_case(kind, K, card, steps, seed=K * card + len(kind))
+    p = torch.from_numpy(pdfs)
+    assert _lm_symbols_off_the_narrow_step(p, bits, n_in) > 0
+    p_cuda, bits_cuda = p.to(cuda), bits.to(cuda)
+    for stall in (False, True):
+        got_state, want_state = k6.init_state(cuda), k6.init_state()
+        got = torch.full((steps, K), -1, dtype=torch.int32, device=cuda)
+        want = torch.full((steps, K), -1, dtype=torch.int32)
+        for t in range(steps):
+            k6.lm_coder(p_cuda[t:t + 1], got[t:t + 1], got_state, bits_cuda, decode=True,
+                        n_bits_in=n_in, stall=stall)
+            k6.lm_coder_reference(p[t:t + 1], want[t:t + 1], want_state, bits, decode=True,
+                                  n_bits_in=n_in, stall=stall)
+            assert torch.equal(got[t].cpu(), want[t]), (stall, t)
+            assert torch.equal(got_state.cpu(), want_state), (stall, t)
+    one_state = k6.init_state(cuda)
+    one = torch.full((steps, K), -1, dtype=torch.int32, device=cuda)
+    k6.lm_coder(p_cuda, one, one_state, bits_cuda, decode=True, n_bits_in=n_in)
+    want_state = k6.init_state()
+    want = torch.full((steps, K), -1, dtype=torch.int32)
+    k6.lm_coder_reference(p, want, want_state, bits, decode=True, n_bits_in=n_in)
+    assert torch.equal(one.cpu(), want)
+    assert torch.equal(one_state.cpu(), want_state)
+    assert torch.equal(k6.build_cdf(p_cuda).long().cpu(), k6.build_cdf_reference(p))
+
+
+def test_lm_coder_rejects_what_the_kernel_does_not_take(cuda):
+    """The wrapper raises on a tensor of another dtype, device, shape or
+    layout, and on a card past MAX_CARD; the latency-floor launch runs and
+    counts no launch of K6."""
+    from encodec_pytorch_tpu_torch.ops import lm_coder_kernel as k6
+    pdfs = torch.full((1, 4, 64), 1 / 64, device=cuda)
+    syms = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    state, bits = k6.init_state(cuda), torch.zeros(64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError, match='pdfs'):
+        k6.lm_coder(pdfs.double(), syms, state, bits, decode=True)
+    with pytest.raises(TypeError, match='syms'):
+        k6.lm_coder(pdfs, syms.long(), state, bits, decode=True)
+    with pytest.raises(ValueError, match='state on cpu'):
+        k6.lm_coder(pdfs, syms, state.cpu(), bits, decode=True)
+    with pytest.raises(ValueError, match='contiguous'):
+        k6.lm_coder(pdfs[:, :, ::2], syms, state, bits, decode=True)
+    with pytest.raises(ValueError, match='do not make'):
+        k6.lm_coder(pdfs, syms[:, :3], state, bits, decode=True)
+    with pytest.raises(ValueError, match='outside'):
+        k6.lm_coder(torch.zeros(1, 1, k6.MAX_CARD + 1, device=cuda), syms[:, :1], state, bits,
+                    decode=True)
+    with pytest.raises(ValueError, match='are not'):
+        k6.lm_coder(pdfs, syms, state[:4], bits, decode=True)
+    launches = k6.lm_coder.launches
+    for K, card in ((8, 1024), (32, 4096)):
+        k6.lm_coder_floor(1, K, card, cuda)
+    torch.cuda.synchronize()
+    assert k6.lm_coder.launches == launches
