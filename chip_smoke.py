@@ -307,10 +307,13 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     at ``model.filters=64``, whose K4 bf16 weights do not stay in shared
     memory: its 12 eligible convs, forward and dx, by the same bf16 rule,
     timed beside cuDNN in bf16.
-17. K5 in bf16 (``disc_im2col_forward_bf16``: ``wgmma`` m64n32k16 bf16) at the
-    9 F-stride-2 convs of a bf16 48 kHz discriminator call, the same checks,
+17. K5 in bf16 (``disc_im2col_forward_bf16``, ``csrc/disc_im2col_bf16.cu``:
+    ``wgmma`` m64n32k16 bf16 with both operands in shared memory, producer
+    warps laying the window out channels-last, persistent CTAs) at the 9
+    F-stride-2 convs of a bf16 48 kHz discriminator call, the same checks,
     beside cuDNN in bf16, K4's bf16 forward (and whether they agree bit for
-    bit) and K5's f32 form.
+    bit) and K5's f32 form; each conv's bound at the bf16 peak labelled by
+    what binds it (bytes or operations).
 18. One full-width step of ``config_48k_stereo`` in bf16 (32 x 48000 stereo):
     K5 and K4 in bf16 launched, peak memory, then kernels against plain from
     the state after it (the bf16 bars of phase 9).
@@ -342,11 +345,13 @@ to the CPU. Phases, in the order they run, each of which fails the run:
     one-rank all-reduce is the identity); ms a step, ms in NCCL collectives.
 
 With ``--before DIR`` (another checkout of the port, e.g. the parent commit
-unpacked with ``git archive``), phases 2, 5, 12 and 16 also run that
-checkout's K1, K3, K5 and K4 bf16 on the same inputs: its time beside the
-kernel's (K4 bf16 in turns, parent, this tree, this tree, parent, and also
-on the device), and whether the codes and outputs are bit-equal to it (for
-K5, how far they differ; for K4 bf16, the share of bit-equal outputs);
+unpacked with ``git archive``), phases 2, 5, 12, 16 and 17 also run that
+checkout's K1, K3, K5, K4 bf16 and K5 bf16 on the same inputs: its time
+beside the kernel's (K4 bf16 and K5 bf16 in turns, parent, this tree, this
+tree, parent, and also on the device; K5 bf16 also the kernel alone), and
+whether the codes and outputs are bit-equal to it (K5's f32 outputs must
+be; for K4 bf16, the share of bit-equal outputs; K5 bf16's conv before the
+bias is held to the parent's by the bf16 rule);
 phases 7 and 11 hold K4's f32 outputs bit-equal to that checkout's; phases
 6b and 6f time its K6 in turns beside this tree's (parent, this tree, this
 tree, parent; events and device time) at the same calls: the decode step,
@@ -1775,8 +1780,11 @@ def k5_phase(torch, seed, before=None):
             y_before = bk5.disc_im2col_forward(x, w, b, *geo)
             row['before_ms'] = cuda_ms(torch, lambda: bk5.disc_im2col_forward(x, w, b, *geo))
             row['before_rel_d'] = float((y - y_before).abs().max()) / top
+            row['equal_before'] = bool(torch.equal(y, y_before))
             line += (f'; the earlier kernel {row["before_ms"]:.4f} ms, max |d| between the two '
-                     f'{row["before_rel_d"]:.2e} of max')
+                     f'{row["before_rel_d"]:.2e} of max, bit-equal: {row["equal_before"]}')
+            check(row['equal_before'],
+                  f'K5 f32 is not bit-equal to the earlier kernel (--before) at x {tuple(x.shape)}')
             del y_before
         log(line)
         check(row['rel_err'] <= K5_TOL_REL and max(e_grad) <= K5_TOL_REL and same,
@@ -3801,11 +3809,16 @@ def k4_bf16_wide(torch, seed) -> dict:
     return out
 
 
-def k5_bf16_phase(torch, seed):
+def k5_bf16_phase(torch, seed, before=None):
     """K5's bf16 forward against its plain version (the im2col GEMM in f32 on
     the bf16 operands), cuDNN in bf16, K4's bf16 forward and K5's f32 form at
     the 9 F-stride-2 convs of one bf16 discriminator call at the 48 kHz
-    config. Returns the summary over the 9 convs."""
+    config, each conv's bound labelled by what binds it. With ``before``
+    (another checkout), its K5 bf16 on the same inputs, in turns (parent,
+    this tree, this tree, parent): the wrapper and the kernel alone by CUDA
+    events and the wrapper on the device, and this tree's conv before the
+    bias held to the parent's by the bf16 rule. Returns the summary over the
+    9 convs."""
     import torch.nn.functional as F
 
     from encodec_pytorch_tpu_torch.config import load_config
@@ -3817,10 +3830,14 @@ def k5_bf16_phase(torch, seed):
                               lambda m: getattr(m, 'uses_im2col', False))
     check(len(calls) == 9, f'expected 9 F-stride-2 convs, found {len(calls)}')
     keys = ('ms', 'device_ms', 'kernel_ms', 'plain_ms', 'library_ms', 'k4_ms', 'f32_ms',
-            'bound_ms', 'gflop')
+            'bound_ms', 'gflop') + (('before_ms', 'before_device_ms', 'before_kernel_ms')
+                                    if before is not None else ())
     tot = {k: 0.0 for k in keys}
+    bound_by_ms = {'bytes': 0.0, 'operations': 0.0}
     worst = 0.0
+    equal_before = []
     shapes = []
+    bk5 = before.disc_im2col_kernel if before is not None else None
     for x, w, b, m in calls:
         geo = (m.dilation, m.padding)
         run = lambda: k5.disc_im2col_forward_bf16(x, w, b, *geo)
@@ -3837,9 +3854,25 @@ def k5_bf16_phase(torch, seed):
         again = bool(torch.equal(y, run()))
         x32, w32, b32 = x.float(), w.float(), b.float()
         row = dict(x=list(x.shape), dilation=list(m.dilation))
-        row['ms'] = cuda_ms(torch, run)
-        row['device_ms'] = device_ms(torch, run)
-        row['kernel_ms'] = cuda_ms(torch, lambda: k5.forward_packed(x, wk, b, *geo))
+        kern = lambda: k5.forward_packed(x, wk, b, *geo)
+        if bk5 is not None:
+            # the conv before the bias against the parent's, by the rule it
+            # holds to its plain version
+            parent = bf16_agreement(torch, conv, bk5.disc_im2col_forward_bf16(x, w, None, *geo))
+            equal_before.append(parent['equal'])
+            wk_before = bk5.pack_weight_cuda(w)
+            wrapper = timed_turns(torch, {'new': run, 'before': lambda: bk5.disc_im2col_forward_bf16(
+                x, w, b, *geo)}, runs=20)
+            alone = timed_turns(torch, {'new': kern, 'before': lambda: bk5.forward_packed(
+                x, wk_before, b, *geo)}, runs=20)
+            row.update(ms=wrapper['ms'], device_ms=wrapper['device_ms'],
+                       before_ms=wrapper['before_ms'], before_device_ms=wrapper['before_device_ms'],
+                       kernel_ms=alone['ms'], before_kernel_ms=alone['before_ms'],
+                       equal_before=parent['equal'])
+        else:
+            row['ms'] = cuda_ms(torch, run)
+            row['device_ms'] = device_ms(torch, run)
+            row['kernel_ms'] = cuda_ms(torch, kern)
         row['plain_ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward_plain(x, w, b, *geo),
                                   runs=5)
         row['library_ms'] = cuda_ms(torch, lambda: F.conv2d(x, w, b, stride=k5.STRIDE,
@@ -3849,8 +3882,9 @@ def k5_bf16_phase(torch, seed):
                                                                          *geo))
         row['f32_ms'] = cuda_ms(torch, lambda: k5.disc_im2col_forward(x32, w32, b32, *geo))
         flops = 2.0 * y.numel() * w[0].numel()
-        row['bound_ms'], _ = bound_ms(
+        row['bound_ms'], row['bound_by'] = bound_ms(
             flops, 2.0 * (x.numel() + w.numel() + b.numel() + y.numel()), PEAK_BF16_FLOPS)
+        bound_by_ms[row['bound_by']] += row['bound_ms']
         row['gflop'] = flops / 1e9
         row.update(equal=whole['equal'], conv_max_ulps=agree['max_ulps'],
                    conv_over_1ulp=agree['over_1ulp'], equal_k4=same_k4['equal'])
@@ -3861,21 +3895,34 @@ def k5_bf16_phase(torch, seed):
             f'(on the device {fmt_ms(row["device_ms"])}; kernel {row["kernel_ms"]:.4f} ms), '
             f'plain {row["plain_ms"]:.4f} ms, cuDNN bf16 {row["library_ms"]:.4f} ms, K4 bf16 '
             f'{row["k4_ms"]:.4f} ms, K5 f32 {row["f32_ms"]:.4f} ms, bound '
-            f'{row["bound_ms"]:.4f} ms (bf16)')
+            f'{row["bound_ms"]:.4f} ms (bf16, {row["bound_by"]})'
+            + (f'; the earlier kernel, in turns: wrapper {row["before_ms"]:.4f} ms (on the '
+               f'device {fmt_ms(row["before_device_ms"])}; kernel '
+               f'{row["before_kernel_ms"]:.4f} ms), the conv before the bias against it '
+               f'{fmt_agree(parent)}'
+               if bk5 is not None else ''))
         check(bf16_ok(agree) and whole['equal'] >= BF16_EQUAL_SHARE and epilogue and packed
               and again, f'K5 bf16 disagrees with its plain version at x {tuple(x.shape)}')
+        check(bk5 is None or bf16_ok(parent),
+              f'K5 bf16 disagrees with the earlier kernel (--before) at x {tuple(x.shape)}')
         worst = max(worst, whole['max_abs'])
         for k in keys:
             tot[k] += row[k] if row[k] is not None else float('nan')
         shapes.append(row)
         del y, ref, conv, k4
+    by = max(bound_by_ms, key=bound_by_ms.get)
     log(f'K5 bf16 over one 48 kHz bf16 discriminator call (9 convs, {tot["gflop"]:.1f} GFLOP): '
         f'wrapper {tot["ms"]:.3f} ms (on the device {fmt_ms(tot["device_ms"])}; kernel '
         f'{tot["kernel_ms"]:.3f} ms), plain {tot["plain_ms"]:.3f} ms, cuDNN bf16 '
         f'{tot["library_ms"]:.3f} ms, K4 bf16 forward {tot["k4_ms"]:.3f} ms, K5 f32 '
-        f'{tot["f32_ms"]:.3f} ms, bound {tot["bound_ms"]:.3f} ms')
+        f'{tot["f32_ms"]:.3f} ms, bound {tot["bound_ms"]:.3f} ms (bytes bind convs worth '
+        f'{bound_by_ms["bytes"]:.3f} ms of it, operations {bound_by_ms["operations"]:.3f} ms)'
+        + (f'; the earlier kernel, in turns: wrapper {tot["before_ms"]:.3f} ms (on the device '
+           f'{fmt_ms(tot["before_device_ms"])}; kernel {tot["before_kernel_ms"]:.3f} ms), '
+           f'bit-equal to it {min(equal_before):.6f} at the worst shape'
+           if bk5 is not None else ''))
     return dict(max_abs_err=worst, **{k: v for k, v in tot.items() if k != 'gflop'},
-                bound_by='operations', shapes=shapes)
+                bound_by=by, shapes=shapes)
 
 
 BF16_ENTRIES = ('disc_conv_forward_bf16', 'disc_conv_input_grad_bf16', 'disc_im2col_forward_bf16')
@@ -4885,7 +4932,7 @@ def run(seed: int, before_dir=None) -> int:
     phase('K4 bf16')
     k4_fwd16, k4_dx16 = k4_bf16_phase(torch, seed, before)
     phase('K5 bf16')
-    k5_16 = k5_bf16_phase(torch, seed)
+    k5_16 = k5_bf16_phase(torch, seed, before)
     phase('48 kHz bf16 step')
     step48_launches = step48_bf16_phase(torch, seed)
     for k in BF16_ENTRIES[:2]:
@@ -4948,7 +4995,7 @@ def run(seed: int, before_dir=None) -> int:
         dict(name='disc_conv_input_grad_bf16', route='cuda', source=k4_src16, replaces=k4_tpu,
              launches=bf16_launches['disc_conv_input_grad_bf16'], **k4_dx16),
         dict(name='disc_im2col_forward_bf16', route='cuda',
-             source='encodec_pytorch_tpu_torch/csrc/disc_im2col.cu',
+             source='encodec_pytorch_tpu_torch/csrc/disc_im2col_bf16.cu',
              replaces='encodec_pytorch_tpu/ops/pallas_conv2d.py:42',
              launches=bf16_launches['disc_im2col_forward_bf16'], **k5_16),
     ]

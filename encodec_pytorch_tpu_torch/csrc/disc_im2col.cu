@@ -1,6 +1,6 @@
 // Discriminator im2col conv, forward (kernel K5) for Hopper: f32 in and out,
-// the products on the tensor cores in 3xTF32 by warpgroup MMA (wgmma), or
-// bf16 in and out in one pass of bf16 products (the second half of this file).
+// the products on the tensor cores in 3xTF32 by warpgroup MMA (wgmma). The
+// bf16 form is csrc/disc_im2col_bf16.cu.
 //
 // Replaces: encodec_pytorch_tpu/ops/pallas_conv2d.py `_kernel` (reached
 // through `conv2d_im2col`). It computes the forward of the MS-STFT
@@ -87,25 +87,9 @@
 //   two blocks (16 warps) share an SM and one block's barrier and staging
 //   overlap the other's products. No atomics and no split K: the same input
 //   gives the same bits on every call.
-//
-// The bf16 form (the TPU kernel takes its input's dtype: bf16 scratch, f32
-// accumulation, bf16 out, pallas_conv2d.py:71, :86, :99-102, :152): bf16 x
-// bf16 products, exact in f32, summed in f32 by wgmma m64n32k16 .bf16 (one
-// wgmma a tile and k-step instead of three), the sum rounded to nearest even
-// to bf16, the bias added after that rounding in bf16 (ops/conv.py:263). A
-// chunk is 8 input channels and a k-step of 16 those 8 at two taps (k 0-7
-// tap 2s, k 8-15 tap 2s+1), so A's register of lane 4g + q (two bf16 along
-// K: channels 2q and 2q+1) is one 32-bit word of the staged window, which
-// keeps each position's channel pair together, at the f32 form's addresses
-// and banks. The pair comes from two channel planes, so the window is staged
-// by plain loads through registers; each k-step's B image (32 channels x
-// 16 k in the k16 core-matrix layout, 1 KB) is laid out once a call by
-// pack_weight_bf16_kernel, and a chunk's 14 come by one TMA bulk copy. The
-// launch is per tile count, as in the f32 form.
 #include <atomic>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tma.cuh"
@@ -396,196 +380,6 @@ __global__ void pack_weight_kernel(const float* __restrict__ w, float* __restric
     dst[BIMG] = __uint_as_float(lo);
 }
 
-// ---------------------------------------------------------------- bf16
-
-constexpr int CC16 = 8;                          // input channels a chunk
-constexpr int NCHUNK16 = CI / CC16;
-constexpr int BIMG16 = 512;                      // bf16 of one B image (32 channels x 16 k)
-constexpr int WCHUNK16 = NSTEP * BIMG16 / 2;     // words of a chunk's weights
-
-// words from one staged channel pair to the next; two weight buffers, two
-// window buffers, then the two mbarriers
-size_t smem_bytes_bf16(int dt) {
-    return sizeof(uint32_t) * (2 * (size_t)WCHUNK16
-                               + 2 * (size_t)(CC16 / 2) * chan_stride(TT + (KT - 1) * dt))
-           + 2 * sizeof(unsigned long long);
-}
-
-// d[64 x 32] += a[64 x 16] * b[16 x 32], bf16 operands, f32 accumulators; a
-// from registers (lane 4g + q of warp w: rows 16w + g and 16w + g + 8, k 2q,
-// 2q+1 and 2q+8, 2q+9, two bf16 a register), b K-major (no transpose)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4],
-                                           uint64_t desc) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
-}
-
-// round(round_bf16(acc) + bias) in bf16, as bits
-__device__ __forceinline__ uint16_t bf16_out(float acc, const uint16_t* bias, int co) {
-    __nv_bfloat16 y = __float2bfloat16_rn(acc);
-    if (bias)
-        y = __float2bfloat16_rn(__bfloat162float(y)
-                                + __bfloat162float(__ushort_as_bfloat16(bias[co])));
-    return __bfloat16_as_ushort(y);
-}
-
-// The f32 form's tiling with bf16 operands (see the head comment).
-template <int NT>
-__global__ void __launch_bounds__(THREADS, 2)
-disc_im2col_bf16_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ wk,
-                        const uint16_t* __restrict__ bias, uint16_t* __restrict__ y,
-                        int T, int F, int To, int Fo, int dt, int pt, int pf, int f_base) {
-    extern __shared__ __align__(128) uint32_t smem_w[];
-    const int R = TT + (KT - 1) * dt;
-    const int CS = chan_stride(R);
-    uint32_t* wbuf = smem_w;                         // [2][WCHUNK16] weights
-    uint32_t* win = smem_w + 2 * WCHUNK16;           // [2][CC16 / 2][CS] window
-    unsigned long long* bars =
-        reinterpret_cast<unsigned long long*>(win + 2 * (CC16 / 2) * CS);
-
-    const int b = blockIdx.z;
-    const int t0 = blockIdx.y * TT;
-    const int f0 = f_base + blockIdx.x * FT;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int wg = warp >> 2;
-    const int g = lane >> 2, q = lane & 3;
-    const size_t plane = (size_t)T * F;
-    const uint16_t* xb = x + (size_t)b * CI * plane;
-    const int row0 = t0 - pt, col0 = 2 * f0 - pf;
-
-    if (tid == 0) {
-        mbar_init(&bars[0], 1);
-        mbar_init(&bars[1], 1);
-        mbar_fence_init();
-    }
-    __syncthreads();
-
-    auto stage = [&](int k) {
-        const int buf = k & 1;
-        if (tid == 0) {
-            mbar_expect(&bars[buf], WCHUNK16 * sizeof(uint32_t));
-            bulk_copy(wbuf + buf * WCHUNK16, wk + (size_t)k * WCHUNK16,
-                      WCHUNK16 * sizeof(uint32_t), &bars[buf]);
-        }
-        uint32_t* xs = win + buf * (CC16 / 2) * CS;
-        constexpr int WN = 2 * (8 * NT - 1) + KF;   // the columns NT tiles read
-        for (int p = 0; p < CC16 / 2; ++p) {
-            const uint16_t* plane0 = xb + (size_t)(k * CC16 + 2 * p) * plane;
-            for (int r = warp; r < R; r += NWARPS) {
-                const int row = row0 + r;
-                const bool row_ok = row >= 0 && row < T;
-                const uint16_t* s0 = row_ok ? plane0 + (size_t)row * F : x;
-                const uint16_t* s1 = row_ok ? s0 + plane : x;
-                uint32_t* dst = xs + p * CS + r * RS;
-#pragma unroll
-                for (int j = lane; j < WN; j += 32) {
-                    const int col = col0 + j;
-                    const bool ok = row_ok && col >= 0 && col < F;
-                    const uint32_t lo = ok ? __ldg(s0 + col) : 0u;
-                    const uint32_t hi = ok ? __ldg(s1 + col) : 0u;
-                    dst[col_slot(j)] = lo | (hi << 16);
-                }
-            }
-        }
-    };
-
-    float acc[NT][16];
-    uint32_t areg[2][4];   // two groups' A operand in flight
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 16; ++i) acc[j][i] = 0.f;
-    int mt_off[KT];
-#pragma unroll
-    for (int mt = 0; mt < KT; ++mt) mt_off[mt] = mt * dt * RS;
-    const int abase = q * CS + (8 * wg + 2 * (warp & 3)) * RS + g;
-
-    stage(0);
-    for (int k = 0; k < NCHUNK16; ++k) {
-        __syncthreads();   // chunk k's window is in; every warpgroup is done with buffer (k+1) & 1
-        if (k + 1 < NCHUNK16) stage(k + 1);
-        mbar_wait(&bars[k & 1], (k >> 1) & 1);
-        const uint32_t* xw = win + (k & 1) * (CC16 / 2) * CS + abase;
-        const uint64_t dbase = b_desc(reinterpret_cast<const float*>(wbuf + (k & 1) * WCHUNK16));
-#pragma unroll
-        for (int s = 0; s < NSTEP; ++s) {
-            const int tap0 = 2 * s, tap1 = 2 * s + 1;
-            const bool has1 = tap1 < TAPS;
-            const int off0 = mt_off[tap0 / KF] + col_slot(tap0 % KF);
-            const int off1 = has1 ? mt_off[tap1 / KF] + col_slot(tap1 % KF) : 0;
-            // descriptors count 16-byte units: a B image is 64 of them
-            const uint64_t d = dbase + (uint64_t)s * (BIMG16 * 2 / 16);
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-                const uint32_t* xf = xw + 8 * j;
-                uint32_t v[4] = {xf[off0], xf[off0 + RS], 0u, 0u};
-                if (has1) {
-                    v[2] = xf[off1];
-                    v[3] = xf[off1 + RS];
-                }
-                // groups alternate between the two register sets; the group
-                // before last, which read this one, is done
-                wgmma_wait<1>();
-                uint32_t (&a)[4] = areg[(s * NT + j) & 1];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) a[i] = v[i];
-                wgmma_fence();
-                wgmma_bf16(acc[j], a, d);
-                wgmma_commit();
-            }
-        }
-        wgmma_wait<0>();
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 16; ++i) keep(acc[j][i]);
-
-    const int t_first = t0 + 8 * wg + 2 * (warp & 3);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-        const int f = f0 + 8 * j + g;
-        if (f >= Fo) continue;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int t = t_first + ((i >> 1) & 1);
-            const int co = 8 * (i >> 2) + 2 * q + (i & 1);
-            if (t >= To) continue;
-            y[(((size_t)b * CO + co) * To + t) * Fo + f] = bf16_out(acc[j][i], bias, co);
-        }
-    }
-}
-
-// The bf16 weights' B images (ops/disc_im2col_kernel.py `pack_weight_bf16`
-// is its plain version; the bits are the same): out [NCHUNK16][NSTEP][BIMG16]
-// bf16; element (co, k) of k-step s of chunk c sits at (co / 8) * 128 +
-// (k / 8) * 64 + (co % 8) * 8 + k % 8 (core matrices of 8 channels x 8 k,
-// the two K-adjacent ones 128 bytes apart, the N-adjacent ones 256) and is
-// w[co, 8c + k % 8, tap / 9, tap % 9] with tap = 2s + k / 8 (zero at tap 27).
-// One thread an element; bf16 in, no rounding.
-__global__ void pack_weight_bf16_kernel(const uint16_t* __restrict__ w,
-                                        uint16_t* __restrict__ out) {
-    const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= NCHUNK16 * NSTEP * BIMG16) return;
-    const int e = idx % BIMG16, s = (idx / BIMG16) % NSTEP, c = idx / (BIMG16 * NSTEP);
-    const int co = (e / 128) * 8 + (e / 8) % 8;
-    const int ci = c * CC16 + e % 8;
-    const int tap = 2 * s + (e / 64) % 2;
-    out[idx] = tap < TAPS ? w[((co * CI + ci) * KT + tap / KF) * KF + tap % KF] : 0;
-}
-
 cudaError_t raise_smem_limit(const void* kernel, int bytes) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            bytes);
@@ -597,12 +391,7 @@ cudaError_t raise_smem_limit(const void* kernel, int bytes) {
 
 template <int NT>
 cudaError_t raise_smem_limits(int bytes) {
-    cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(disc_im2col_kernel<NT>),
-                                       bytes);
-    if (err == cudaSuccess)
-        err = raise_smem_limit(reinterpret_cast<const void*>(disc_im2col_bf16_kernel<NT>),
-                               bytes);
-    return err;
+    return raise_smem_limit(reinterpret_cast<const void*>(disc_im2col_kernel<NT>), bytes);
 }
 
 // The current device's opt-in shared-memory limit, with every instantiation's
@@ -627,38 +416,26 @@ cudaError_t prepare_device(int* limit_out) {
     return cudaSuccess;
 }
 
-// One column of blocks (or all the full ones) from output column f_base on,
-// in f32 (T = float, W = float) or bf16 (T = uint16_t, W = uint32_t).
-template <typename T, typename W>
-cudaError_t launch(int nt, dim3 grid, size_t smem, cudaStream_t stream, const T* x, const W* wk,
-                   const T* bias, T* y, int Tn, int F, int To, int Fo, int dt, int pt, int pf,
-                   int f_base) {
-    if constexpr (sizeof(T) == 2) {
-        auto kernel = nt == 1 ? disc_im2col_bf16_kernel<1>
-                      : nt == 2 ? disc_im2col_bf16_kernel<2>
-                      : nt == 3 ? disc_im2col_bf16_kernel<3> : disc_im2col_bf16_kernel<4>;
-        kernel<<<grid, THREADS, smem, stream>>>(x, wk, bias, y, Tn, F, To, Fo, dt, pt, pf,
-                                                f_base);
-    } else {
-        auto kernel = nt == 1 ? disc_im2col_kernel<1>
-                      : nt == 2 ? disc_im2col_kernel<2>
-                      : nt == 3 ? disc_im2col_kernel<3> : disc_im2col_kernel<4>;
-        kernel<<<grid, THREADS, smem, stream>>>(x, wk, bias, y, Tn, F, To, Fo, dt, pt, pf,
-                                                f_base);
-    }
+// One column of blocks (or all the full ones) from output column f_base on.
+cudaError_t launch(int nt, dim3 grid, size_t smem, cudaStream_t stream, const float* x,
+                   const float* wk, const float* bias, float* y, int Tn, int F, int To, int Fo,
+                   int dt, int pt, int pf, int f_base) {
+    auto kernel = nt == 1 ? disc_im2col_kernel<1>
+                  : nt == 2 ? disc_im2col_kernel<2>
+                  : nt == 3 ? disc_im2col_kernel<3> : disc_im2col_kernel<4>;
+    kernel<<<grid, THREADS, smem, stream>>>(x, wk, bias, y, Tn, F, To, Fo, dt, pt, pf, f_base);
     return cudaGetLastError();
 }
 
-template <typename T, typename W>
-int forward(const T* x, const W* wk, const T* bias, T* y, int B, int Cin, int Cout, int Tn,
-            int F, int kt, int kf, int dt, int pt, int pf, void* stream) {
+int forward(const float* x, const float* wk, const float* bias, float* y, int B, int Cin,
+            int Cout, int Tn, int F, int kt, int kf, int dt, int pt, int pf, void* stream) {
     if (Cin != CI || Cout != CO || kt != KT || kf != KF || dt < 1 || dt > MAX_DT || pt < 0 ||
         pf < 0)
         return cudaErrorInvalidValue;
     const int To = Tn + 2 * pt - (KT - 1) * dt;
     if (B <= 0 || To <= 0 || F + 2 * pf < KF) return cudaSuccess;
     const int Fo = (F + 2 * pf - KF) / 2 + 1;
-    const size_t smem = sizeof(T) == 2 ? smem_bytes_bf16(dt) : smem_bytes(dt);
+    const size_t smem = smem_bytes(dt);
     int limit = 0;
     const cudaError_t err = prepare_device(&limit);
     if (err != cudaSuccess) return err;
@@ -700,23 +477,5 @@ extern "C" int encodec_disc_im2col_pack_f32(const float* w, float* out, void* st
     const int total = NCHUNK * NSTEP * BIMG, threads = 256;
     pack_weight_kernel<<<(total + threads - 1) / threads, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(w, out);
-    return cudaGetLastError();
-}
-
-// The bf16 forward: x, bias and y as the f32 entry's but bf16 (their bits),
-// wk the B images as encodec_disc_im2col_pack_bf16 writes them.
-extern "C" int encodec_disc_im2col_fwd_bf16(const uint16_t* x, const uint32_t* wk,
-                                            const uint16_t* bias, uint16_t* y, int B, int Cin,
-                                            int Cout, int T, int F, int kt, int kf, int dt,
-                                            int pt, int pf, void* stream) {
-    return forward(x, wk, bias, y, B, Cin, Cout, T, F, kt, kf, dt, pt, pf, stream);
-}
-
-// The bf16 B images from w [32, 32, 3, 9] bf16; out holds NCHUNK16 * NSTEP *
-// BIMG16 = 28672 bf16. Returns a CUDA error code (0 = launched).
-extern "C" int encodec_disc_im2col_pack_bf16(const uint16_t* w, uint16_t* out, void* stream) {
-    const int total = NCHUNK16 * NSTEP * BIMG16, threads = 256;
-    pack_weight_bf16_kernel<<<(total + threads - 1) / threads, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(w, out);
     return cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-"""Discriminator im2col conv: the CUDA kernel K5 (``csrc/disc_im2col.cu``),
-its plain version, and the trainable conv built on it.
+"""Discriminator im2col conv: the CUDA kernel K5 (``csrc/disc_im2col.cu``; in
+bf16 ``csrc/disc_im2col_bf16.cu``), its plain version, and the trainable
+conv built on it.
 
 Port of ``encodec_pytorch_tpu/ops/pallas_conv2d.py`` (``conv2d_im2col``, the
 im2col GEMM ``W[32, 864] @ X[864, N]``), in torch's NCHW layout with H = STFT
@@ -31,12 +32,16 @@ the kernel's ``wgmma`` k-steps; on the card :func:`pack_weight_cuda` does the
 same in one launch, once a call.
 
 K5 takes float32 or bfloat16, as the TPU kernel takes its input's dtype. In
-bfloat16 (:func:`disc_im2col_forward_bf16`) it is one ``wgmma`` of bf16
-products a k-step, summed in f32, the sum rounded to bf16 and the bias added
-after that rounding, in bf16 (``ops/conv.py:263``); the weights are laid out
-by :func:`pack_weight_bf16` (one launch on the card), and the plain version
-is the same im2col GEMM in f32 on the bf16 operands, rounded to bf16, then
-the bias added in bf16.
+bfloat16 (:func:`disc_im2col_forward_bf16`, ``csrc/disc_im2col_bf16.cu``) it
+is ``wgmma`` of bf16 products with both operands in shared memory, fed by
+producer warps that lay the window out channels-last, in persistent CTAs;
+the products are summed in f32, the sum rounded to bf16 and the bias added
+after that rounding, in bf16 (``ops/conv.py:263``). It takes T dilations 1,
+2 and 4 only (the discriminator's). The weights are laid out by
+:func:`pack_weight_bf16` (one launch on the card), each k-step pairing two
+taps in the order of their staged addresses (:data:`TAP_ORDER_BF16`), and
+the plain version is the same im2col GEMM in f32 on the bf16 operands,
+rounded to bf16, then the bias added in bf16.
 
 For a CUDA tensor the wrapper launches the kernel of the tensors' dtype, or
 raises on a dtype, shape or stride it does not take (a bf16 call never
@@ -65,10 +70,14 @@ T_DILATIONS = (1, 2, 4)
 CHUNK = 4
 STEPS = -(-TAPS[0] * TAPS[1] // 2)
 B_IMAGE = CHANNELS * 8
-# the bf16 kernel: chunks of 8 channels, k-steps of 16 (8 channels at two
-# taps), a B image of 32 output channels x 16 k
+# the bf16 kernel (csrc/disc_im2col_bf16.cu): chunks of 8 channels, k-steps
+# of 16 (8 channels at two taps), a B image of 32 output channels x 16 k; the
+# taps (mt * 9 + mf) in the order of their staged addresses: each row mt's
+# even mf (staged first), then its odd ones
 CHUNK_BF16 = 8
 B_IMAGE_BF16 = CHANNELS * 16
+TAP_ORDER_BF16 = tuple(mt * TAPS[1] + mf for mt in range(TAPS[0])
+                       for mf in list(range(0, TAPS[1], 2)) + list(range(1, TAPS[1], 2)))
 
 
 def eligible(in_channels: int, out_channels: int, kernel_size: Pair, stride: Pair,
@@ -123,11 +132,13 @@ def pack_weight_bf16(w: torch.Tensor) -> torch.Tensor:
     k-step, and the k-step's B image in ``wgmma``'s K-major layout without
     swizzle (core matrices of 8 channels x 8 k), where element ``(co, k)``
     sits at ``(co // 8)·128 + (k // 8)·64 + (co % 8)·8 + k % 8`` and is
-    ``w[co, 8·chunk + k % 8, tap // 9, tap % 9]`` with ``tap = 2·step + k //
-    8`` (zero at tap 27). No rounding: the values are moved."""
+    ``w[co, 8·chunk + k % 8, tap // 9, tap % 9]`` with ``tap =
+    TAP_ORDER_BF16[2·step + k // 8]`` (zero past the 27th). No rounding: the
+    values are moved."""
     Cout, Cin, KT, KF = w.shape
     taps = KT * KF
-    wt = F.pad(w.reshape(Cout, Cin, taps), (0, 2 * STEPS - taps))
+    wt = w.reshape(Cout, Cin, taps)[:, :, list(TAP_ORDER_BF16)]
+    wt = F.pad(wt, (0, 2 * STEPS - taps))
     # co-block, co % 8, chunk, c, step, tap of the pair
     wt = wt.reshape(Cout // 8, 8, Cin // CHUNK_BF16, CHUNK_BF16, STEPS, 2)
     return wt.permute(2, 4, 0, 5, 1, 3).reshape(Cin // CHUNK_BF16, STEPS,
@@ -189,6 +200,9 @@ def _forward_checked(what: str, x: torch.Tensor, w: torch.Tensor, bias: Optional
     dt, pt, pf = dilation[0], padding[0], padding[1]
     if dt < 1 or min(pt, pf) < 0:
         raise ValueError(f'disc_im2col kernel: bad dilation {dilation} or padding {padding}')
+    if dtype == torch.bfloat16 and dt not in T_DILATIONS:
+        raise ValueError(f'{what}: the bf16 kernel is built for T dilations {T_DILATIONS}, '
+                         f'got {dt}')
     if x.dim() != 4 or x.shape[1] != Cin or (bias is not None and bias.shape != (Cout,)):
         raise ValueError(f'{what}: x {tuple(x.shape)}, w {tuple(w.shape)}')
     B, _, T, F_ = x.shape

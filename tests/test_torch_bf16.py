@@ -15,9 +15,11 @@ value it measured on the CPU:
 - codec round trip: >= 95 % of codes equal to f32 and decode relative RMS
   < 0.15, the gates of ``tests/test_bf16.py:52-83`` (measured: 1.0 and
   0.0041; and 1.0 of the codes equal to the JAX bf16 codes);
-- K4's bf16 kernel emulated by its index maps (its raw pieces, layout,
-  descriptors and B images) against the f32 plain versions: within 1e-5 of
-  max;
+- K4's and K5's bf16 kernels emulated by their index maps (K4: its raw
+  pieces, layout, descriptors and B images; K5: its aligned pieces, the
+  shift by the row's alignment, the transposed ``stmatrix`` stores into the
+  even/odd window, descriptors and B images) against the f32 plain
+  versions: within 1e-5 of max;
 - the plain versions of K4 (forward, dx) and K5 in bf16 against the JAX
   Pallas kernels in interpret mode on bf16 inputs: >= 99 % of the outputs
   bit-equal and every other within 1 bf16 ulp or, where the sum nearly
@@ -404,3 +406,119 @@ def test_k4_bf16_kernel_index_maps_hold_the_plain_versions(B, Cin, Cout, T, F, k
                            base_e)
     ref = dck.disc_conv_input_grad_reference(gy.float(), w.float(), x.shape, *geo)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# K5's bf16 kernel (csrc/disc_im2col_bf16.cu), emulated by its index maps: the
+# tile grid, the units of 8 input columns loaded as 16-byte-aligned pieces
+# and shifted by the row's alignment, the transposed stmatrix stores into the
+# channels-last window (even input columns first, odd from slot K5_OB), the
+# wgmma descriptors of each k-step and the B images. The constants mirror the
+# kernel's.
+K5_ROWS, K5_FT, K5_G, K5_OB, K5_RS = 32, 16, 5, 21, 41
+
+
+def _emulate_k5_bf16(x: torch.Tensor, image: torch.Tensor, dt: int, pt: int, pf: int,
+                     base_e: int) -> torch.Tensor:
+    """The kernel's f32 sums (before any rounding) from ``x`` (bf16 [B, 32,
+    T, F]) placed at an address of ``base_e`` mod 8 elements, and its B
+    images: memory around ``x`` and every slot of a stage that no store
+    writes hold NaN, so a value the kernel should have masked, or a slot it
+    reads and never writes, shows."""
+    B, C, T, F = x.shape
+    To, Fo = dck.out_size(T, F, 3, 9, 2, dt, pt, pf)
+    R = K5_ROWS + 2 * dt
+    NU = R * K5_G
+    NIT = -(-NU // 4)
+    RA = -(-4 * NIT // K5_G)
+    pad = 16
+    mem = torch.full((pad + base_e + x.numel() + 2 * pad,), float('nan'))
+    mem[pad + base_e:pad + base_e + x.numel()] = x.float().reshape(-1)
+    # the producer's units: u = 4 * iteration + q, lane 4c + q holds channel c
+    u = torch.arange(4 * NIT)
+    ur, ug = u // K5_G, u % K5_G
+    j8 = torch.arange(8)
+    # the consumers' taps in address order, as offsets in a stage (slots)
+    order = list(k5.TAP_ORDER_BF16) + [None]
+    slot = lambda col: K5_OB + col // 2 if col % 2 else col // 2
+    off = [None if t is None else (t // 9) * dt * K5_RS + slot(t % 9) for t in order]
+    n, k = torch.arange(32)[None, :], torch.arange(16)[:, None]
+    b_index = (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+    m = torch.arange(64)
+    # stmatrix .x4 .trans: the row rr of matrix mm (an address from lane 8 mm +
+    # rr) gets channel C's element 2 mm + rr % 2 of unit q = rr // 2, from
+    # lane 4C + q
+    it = torch.arange(NIT)[:, None, None]
+    mm = torch.arange(4)[None, :, None]
+    rr = torch.arange(8)[None, None, :]
+    uu = (4 * it + rr // 2).expand(NIT, 4, 8)
+    el = (2 * mm + rr % 2).expand(NIT, 4, 8)
+    cc = 8 * (uu % K5_G) + el
+    flat = ((uu // K5_G) * K5_RS + torch.where(cc % 2 == 1, K5_OB + cc // 2, cc // 2)).reshape(-1)
+    at = lambda a: mem[a.clamp(0, mem.numel() - 1)]
+    out = torch.zeros(B, 32, To, Fo)
+    for b in range(B):
+        for tb in range(-(-To // K5_ROWS)):
+            for cb in range(-(-Fo // K5_FT)):
+                t0, f0 = tb * K5_ROWS, cb * K5_FT
+                row, col = t0 - pt + ur, 2 * f0 - pf + 8 * ug           # [U]
+                ok = (u < NU) & (row >= 0) & (row < T)
+                acc = torch.zeros(8, 64, 32)
+                for chunk in range(4):
+                    ch = chunk * 8 + torch.arange(8)[:, None]           # [8, 1]
+                    a = pad + base_e + ((b * C + ch) * T + row) * F + col  # [8, U]
+                    s = a % 8
+                    a16 = a - s
+                    # a piece is read only if it holds an element of the unit in x
+                    ld0 = ok & (col < F) & (col + 7 - s >= 0)
+                    ld1 = ok & (s > 0) & (col + 8 - s < F) & (col + 7 >= 0)
+                    pieces = torch.cat([
+                        torch.where(ld0[..., None], at(a16[..., None] + j8), 0.),
+                        torch.where(ld1[..., None], at(a16[..., None] + 8 + j8), 0.)], -1)
+                    v = pieces.gather(-1, s[..., None] + j8)             # [8, U, 8]
+                    valid = ok[:, None] & (col[:, None] + j8 >= 0) & (col[:, None] + j8 < F)
+                    v = torch.where(valid, v, 0.)
+                    stage = torch.full((RA * K5_RS, 8), float('nan'))
+                    stage[flat] = v[:, uu.reshape(-1), el.reshape(-1)].t()
+                    for v_ in range(8):                                 # the 8 m64 tiles
+                        base = 8 * (v_ // 2) * K5_RS + 8 * (v_ % 2)
+                        for st in range(14):
+                            o0, o1 = off[2 * st], off[2 * st + 1]
+                            lbo = 0 if o1 is None else o1 - o0
+                            assert lbo >= 0                # a descriptor offset is unsigned
+                            rows_a = base + o0 + (m // 8) * K5_RS + m % 8
+                            A = torch.cat([stage[rows_a], stage[rows_a + lbo]], 1)
+                            e = image[chunk, st].float()
+                            acc[v_] += A @ e[b_index]
+                for v_ in range(8):
+                    t = t0 + 8 * (v_ // 2) + m // 8
+                    f = f0 + 8 * (v_ % 2) + m % 8
+                    keep = (t < To) & (f < Fo)
+                    out[b, :, t[keep], f[keep]] = acc[v_][keep].t()
+    return out
+
+
+@pytest.mark.parametrize('B,T,Fo,dt,base_e', [
+    (1, 21, 33, 1, 0),
+    (1, 40, 33, 2, 3),       # two row tiles
+    (1, 19, 33, 4, 5),
+    (2, 9, 65, 1, 7),
+    (1, 13, 65, 2, 1),
+    (1, 33, 65, 4, 6),
+])
+def test_k5_bf16_kernel_index_maps_hold_the_plain_version(B, T, Fo, dt, base_e):
+    """K5's bf16 kernel's data movement, emulated on the CPU from its index
+    maps (16-byte pieces of rows of any alignment, shifted into 8-column
+    units, stored transposed by stmatrix into the channels-last window with
+    even columns first, the wgmma descriptors of each k-step with taps in
+    address order, the B images of ``pack_weight_bf16``), summed in f32:
+    within 1e-5 of max of the f32 plain version, at Fo = 2^k + 1, T
+    dilations 1, 2 and 4, ragged row tiles and rows that start at any
+    address mod 16 bytes."""
+    gen = torch.Generator().manual_seed(T * Fo + dt)
+    x = torch.randn(B, 32, T, 2 * Fo - 1, generator=gen).to(BF16)
+    w = (torch.randn(32, 32, 3, 9, generator=gen) / 10).to(BF16)
+    geo = ((dt, 1), (dt, 4))
+    y = k5.disc_im2col_forward_plain(x.float(), w.float(), None, *geo)
+    got = _emulate_k5_bf16(x, k5.pack_weight_bf16(w), dt, dt, 4, base_e)
+    assert got.shape == y.shape
+    assert (got - y).abs().max() <= 1e-5 * y.abs().max()

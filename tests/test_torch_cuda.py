@@ -37,7 +37,12 @@ cores) within 1e-5 · max|ref| of its plain version and of ``F.conv2d`` at
 ragged tiles and every T dilation (Fo 33 and 65, T not a multiple of the
 block's 16 rows, B 1 and 3), bit-equal across two calls, counting one launch
 a call, with its weight-packing kernel bit-equal to the plain packing; its
-trainable route's three gradients likewise; a
+trainable route's three gradients likewise; its bf16 form (a persistent
+grid of 32-row x 16-column tiles) held to its plain version and to K4's
+bf16 forward by the bf16 rule where only a persistent grid can go wrong (a
+tile count the grid does not divide, fewer tiles than SMs, To around a
+tile's rows, Fo = 2^k + 1 for k = 4 to 9) and at the 48 kHz call's 9 shapes,
+and refusing a T dilation it is not built for; a
 ``time_group_norm`` model on the card never takes K3 and matches the CPU.
 Trainer state on the card: a checkpoint written from the card loads back
 bit-equal and a resumed trainer trains on; the test loop's step through the
@@ -769,6 +774,8 @@ def test_disc_im2col_rejects_what_it_does_not_take(cuda):
         k5.disc_im2col_forward(x[:, :16], w[:16, :16], None, (1, 1), (1, 4))
     with pytest.raises(ValueError):
         k5.disc_im2col_forward(x, w, None, (1, 2), (1, 4))
+    with pytest.raises(ValueError):     # a T dilation the bf16 kernel is not built for
+        k5.disc_im2col_forward(x.bfloat16(), w.bfloat16(), None, (3, 1), (3, 4))
 
 
 def _bf16_matches(got, ref):
@@ -836,16 +843,30 @@ def test_bf16_pack_kernels_are_the_plain_packings(cuda, Cout, Cin, k, sf):
         assert torch.equal(k5.pack_weight_cuda(w), k5.pack_weight_bf16(w))
 
 
-@pytest.mark.parametrize('B', [1, 3])
-@pytest.mark.parametrize('Fo', [33, 65])
-@pytest.mark.parametrize('dt', [1, 2, 4])
-def test_disc_im2col_bf16_kernel_matches_plain(cuda, B, Fo, dt):
-    """K5's bf16 form at ragged tiles and every T dilation: held to its plain
-    version and, by the same rule, to K4's bf16 forward (the two sum their k
-    steps in different orders), the same bits on a repeat."""
-    gen = torch.Generator(device=cuda).manual_seed(100 * B + Fo + dt + 1)
+# the (T, F, dilation) of the 9 F-stride-2 convs of the 48 kHz discriminator
+K5_SHAPES_48K = [(184, 513, 1), (184, 257, 2), (184, 129, 4), (90, 1025, 1), (90, 513, 2),
+                 (90, 257, 4), (372, 257, 1), (372, 129, 2), (372, 65, 4)]
+# K5 bf16's persistent grid (tiles of 32 rows x 16 columns): ragged tiles at
+# every dilation (T 21); a tile count the grid does not divide (3 x 10 x 17 =
+# 510) with a ragged last column block; fewer tiles than SMs; To one below and
+# at a tile's 32 rows, and one past; Fo = 2^k + 1 for k = 4 to 9; the 48 kHz
+# call's 9 shapes at B 2
+K5_BF16_CASES = ([(B, 21, Fo, dt) for B in (1, 3) for Fo in (33, 65) for dt in (1, 2, 4)]
+                 + [(3, 300, 257, 1), (1, 8, 17, 4), (1, 31, 65, 2), (2, 32, 65, 4),
+                    (1, 33, 129, 1), (1, 24, 17, 1), (1, 40, 257, 2), (1, 10, 513, 4)]
+                 + [(2, T, (F - 1) // 2 + 1, dt) for T, F, dt in K5_SHAPES_48K])
+
+
+@pytest.mark.parametrize('B,T,Fo,dt', K5_BF16_CASES)
+def test_disc_im2col_bf16_kernel_matches_plain(cuda, B, T, Fo, dt):
+    """K5's bf16 form at ragged tiles and every T dilation, and at what only a
+    persistent grid can get wrong: held to its plain version and, by the same
+    rule, to K4's bf16 forward (the two sum their k steps in different
+    orders), the same bits on a repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * B + Fo + dt + 1
+                                                   + (0 if T == 21 else 100_000 * T))
     bf = torch.bfloat16
-    x = torch.randn(B, 32, 21, 2 * Fo - 1, generator=gen, device=cuda).to(bf)
+    x = torch.randn(B, 32, T, 2 * Fo - 1, generator=gen, device=cuda).to(bf)
     w = (torch.randn(32, 32, 3, 9, generator=gen, device=cuda) / 30).to(bf)
     b = torch.randn(32, generator=gen, device=cuda).to(bf)
     geo = ((dt, 1), (dt, 4))
@@ -854,7 +875,7 @@ def test_disc_im2col_bf16_kernel_matches_plain(cuda, B, Fo, dt):
     y = k5.disc_im2col_forward(x, w, b, *geo)
     assert (k5.disc_im2col_forward.launches, k5.disc_im2col_forward_bf16.launches) == (
         counts[0], counts[1] + 2)
-    assert y.shape == (B, 32, 21, Fo) and torch.equal(y, conv + b.reshape(1, -1, 1, 1))
+    assert y.shape == (B, 32, T, Fo) and torch.equal(y, conv + b.reshape(1, -1, 1, 1))
     _bf16_matches(conv, k5.disc_im2col_forward_plain(x, w, None, *geo))
     _bf16_matches(dck.disc_conv_forward_bf16(x, w, None, k5.STRIDE, *geo), conv)
     assert torch.equal(y, k5.disc_im2col_forward(x, w, b, *geo))
